@@ -8,19 +8,26 @@ Phases (any failure raises and ends the run with a non-zero exit):
 
 1. the card, the versions, and the build of ``src/repro_torch/csrc/*.cu``;
 2. each kernel against its plain version on the card, at the shapes of the
-   paper's §3.3 run (3 species x 16,777,216 slots, 102,401 nodes) and at a
-   ragged small shape for every boundary with and without a magnetic field;
-   times by CUDA events beside the least time the card's memory allows;
-3. the main path at full width through the port's entry points: the §3.3
-   configuration with ``strategy='fused'`` for 5 steps, the same with the
-   field solve on (rho carried) for 5 steps, ``strategy='explicit'`` for 3
-   steps, and the ``pic_run`` command line; exact pair accounting, finite
-   energies and the launches each kernel made per step;
-4. a profile of two §3.3 fused steps: device time by kernel, and the
-   device's busy share of the step;
-5. card against CPU: the small bench configuration, fused with the field
-   solve, 3 steps on the card and on a CPU copy of the same state with the
-   same random draws;
+   paper's §3.3 run (3 species x 16,777,216 slots, 102,401 nodes; the
+   Takizuka-Abe deflection on the within-cell pairs of the 16,777,216
+   electron slots) and at ragged small shapes (every boundary with and
+   without a magnetic field; deflection rows along z and with delta = 0);
+   times by CUDA events beside the least time the card allows;
+3. the main paths at full width through the port's entry points, each with
+   the kernels' launch counts set to 0 just before it and read just after:
+   the §3.3 configuration with ``strategy='fused'`` for 5 steps, the same
+   with the field solve on (rho carried) for 5 steps, ``strategy='explicit'``
+   for 3 steps, the collision menu with ``collide_kernel=True`` (ionization
+   off) for 3 steps, and two ``pic_run`` command lines (plain, and with
+   ``--collisions``); exact pair accounting or constant counts, the
+   collision menu's energy invariants, finite energies and the launches
+   each kernel made per step;
+4. profiles of two §3.3 fused steps and of one collision step: device time
+   by operator and kernel, and the device's busy share of the step;
+5. card against CPU, each on a CPU copy of the same state with the same
+   random draws: the small bench configuration, fused with the field solve,
+   3 steps; and the small collision configuration, fused with
+   ``collide_kernel=True``, 3 steps each started from the CPU's state;
 6. one line of JSON with every kernel's numbers, then the result line.
 
 Exits non-zero and prints no result without a CUDA device, or when the
@@ -51,6 +58,12 @@ F32_FLOPS = 67e12
 # and 4 for the two weighted charges
 PUSH_FLOPS = 24
 DEPOSIT_FLOPS = 10
+# flops a row of the Takizuka-Abe deflection, from csrc/collide.cu on its
+# general branch: cos/sin of theta 8, the two magnitudes 7 (square roots
+# counted as one), cos/sin of phi 2, the degenerate-frame test 3, du 27
+TA_FLOPS = 47
+TA_BYTES = 32       # u 12, delta 4, phi 4 read; du 12 written
+COLL_KEYS = ("coll_elastic", "coll_cx", "coll_coulomb")
 
 TOL = 2e-5          # x / v / w, as tests/test_kernels.py
 RHO_TOL = 1e-3      # rho, as tests/test_kernels.py
@@ -163,11 +176,58 @@ def compare_deposit(deposit, x, q, kw):
     return err
 
 
+def compare_ta_kick(collide, u, delta, phi):
+    """Kernel vs plain on the same rows: du within 1e-6 (1 + max|u|),
+    |u + du| = |u| to 1e-5, and delta = 0 rows deflected by exactly 0."""
+    got = collide.ta_kick(u, delta, phi)
+    want = collide.ta_kick_plain(u, delta, phi)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    umax = float(u.abs().max())
+    check_close("ta_kick du", err, umax, 1e-6)
+    mag0 = torch.linalg.vector_norm(u.double(), dim=1)
+    mag1 = torch.linalg.vector_norm(u.double() + got.double(), dim=1)
+    bad = int(((mag1 - mag0).abs() > 1e-5 * mag0 + 1e-6 * (1 + umax)).sum())
+    if bad:
+        raise AssertionError(f"ta_kick: |u + du| != |u| on {bad} rows")
+    zero = delta == 0
+    if bool((got[zero] != 0).any()):
+        raise AssertionError("ta_kick: a delta = 0 row was deflected")
+    return err
+
+
+def main_path_ta_inputs(electrons, cfg):
+    """The rows the collision path hands the deflection kernel: one
+    ``coulomb_intra`` call on ``electrons`` with the menu's Coulomb rate,
+    whose ``ops.ta_kick`` call is recorded and answered by the plain
+    version (no launch is counted)."""
+    from repro_torch.configs.pic_bit1 import make_collision_menu
+    from repro_torch.core import collisions
+    from repro_torch.kernels import collide, ops
+
+    rate = make_collision_menu(("coulomb",))[0].rate
+    seen = {}
+
+    def record(u, delta, phi):
+        seen.update(u=u, delta=delta, phi=phi)
+        return collide.ta_kick_plain(u, delta, phi)
+
+    gen = torch.Generator(device=electrons.x.device).manual_seed(99)
+    orig, ops.ta_kick = ops.ta_kick, record
+    try:
+        collisions.coulomb_intra(
+            gen, electrons, collisions.cell_density(cfg.grid, electrons),
+            cfg.grid, rate, cfg.dt, use_kernel=True)
+    finally:
+        ops.ta_kick = orig
+    return seen["u"], seen["delta"], seen["phi"]
+
+
 def kernel_phase(dev):
     from repro_torch.configs.pic_bit1 import make_config
     from repro_torch.core import pic
-    from repro_torch.core.particles import stack_species
-    from repro_torch.kernels import deposit, fused_cycle, mover
+    from repro_torch.core.particles import SpeciesBuffer, stack_species
+    from repro_torch.kernels import collide, deposit, fused_cycle, mover
 
     f32 = torch.float32
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -200,8 +260,18 @@ def kernel_phase(dev):
     compare_deposit(deposit, xs,
                     torch.rand(3000, generator=gen, device=dev),
                     dict(x0=0.0, dx=10.0 / 512, nc=512))
-    log("kernels: ragged shapes (cap 5000, 3 boundaries x b on/off) agree "
-        "with their plain versions")
+    m = 5000
+    u = torch.randn(m, 3, generator=gen, device=dev)
+    u[:40, :2] = 0.0                       # u along +z and -z
+    u[:20, 2] = torch.rand(20, generator=gen, device=dev) + 0.5
+    u[20:40, 2] = -torch.rand(20, generator=gen, device=dev) - 0.5
+    delta = 0.5 * torch.randn(m, generator=gen, device=dev)
+    delta[::7] = 0.0
+    phi = torch.rand(m, generator=gen, device=dev) * (2 * torch.pi)
+    compare_ta_kick(collide, u, delta, phi)
+    log("kernels: ragged shapes (cap 5000, 3 boundaries x b on/off; 5000 "
+        "deflection rows with u along z and delta = 0) agree with their "
+        "plain versions")
 
     # the main path's shapes: the §3.3 initial state, a non-zero field
     cfg = make_config(mover_strategy="fused")
@@ -274,6 +344,23 @@ def kernel_phase(dev):
         plain_ms=median_ms(lambda: deposit.deposit_plain(x, q, **dkw),
                            5),
         bound_ms=bms, bound_by=by, library_ms=lib_ms)
+
+    # the Coulomb deflection of the collision path: the within-cell pairs
+    # of the §3.3 electrons, one row per slot
+    electrons = SpeciesBuffer(x=st.x[0], v=st.v[0], w=st.w[0],
+                              alive=st.alive[0])
+    targs = main_path_ta_inputs(electrons, cfg)
+    rows = targs[0].shape[0]
+    err = compare_ta_kick(collide, *targs)
+    bms, by = bound_ms(rows * TA_BYTES, rows * TA_FLOPS)
+    results["ta_kick"] = dict(
+        name="ta_kick", route="cuda", source="src/repro_torch/csrc/collide.cu",
+        replaces="src/repro/kernels/collide.py:36", max_abs_err=err,
+        ms=median_ms(lambda: collide.ta_kick(*targs), 20),
+        plain_ms=median_ms(lambda: collide.ta_kick_plain(*targs), 5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"ta_kick rows: {rows}, of which {int((targs[1] != 0).sum())} "
+        f"with delta != 0")
     for r in results.values():
         extra = (f" (no deposit {r['ms_no_deposit']:.4f} ms)"
                  if "ms_no_deposit" in r else "")
@@ -283,7 +370,7 @@ def kernel_phase(dev):
             f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms{extra}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}")
-    del st, fargs, margs, x, q, idx, upd
+    del st, fargs, margs, x, q, idx, upd, electrons, targs
     torch.cuda.empty_cache()
     return results
 
@@ -294,16 +381,33 @@ def launches(counters):
     return {name: fn.launches for name, fn in counters.items()}
 
 
+def ke64(cfg, species):
+    """Kinetic energy of each species in float64."""
+    return {sc.name: 0.5 * sc.mass * float(
+        (b.w.double() * b.alive * (b.v.double() ** 2).sum(-1)).sum())
+        for sc, b in zip(cfg.species, species)}
+
+
 def drive(cfg, steps, label, counters, per_step, dev, seed=0):
     """Run ``steps`` steps through make_step and check the step's contract:
-    exact pair accounting, finite energies, the launches of each kernel."""
+    exact pair accounting with ionization, constant counts without it, the
+    collision menu's counters and energy invariants, finite energies, the
+    launches of each kernel. Returns (steady ms/step, launches)."""
     from repro_torch.core import pic
 
+    torch.cuda.reset_peak_memory_stats(dev)
     state = pic.init_state(cfg, seed, device=dev)
     step = pic.make_step(cfg)
     n0 = [int(b.count()) for b in state.species]
+    # the push leaves v alone with the field off: only the menu moves KE
+    check_ke = (bool(cfg.collisions) and cfg.ionization is None
+                and not cfg.field_solve)
+    ke0 = ke64(cfg, state.species) if check_ke else None
     ionized = 0
+    colls = dict.fromkeys(COLL_KEYS, 0) if cfg.collisions else {}
     times = []
+    for fn in counters.values():
+        fn.launches = 0
     for k in range(steps):
         before = launches(counters)
         torch.cuda.synchronize()
@@ -316,84 +420,146 @@ def drive(cfg, steps, label, counters, per_step, dev, seed=0):
         if delta != per_step:
             raise AssertionError(f"{label} step {k}: launches {delta}, "
                                  f"expected {per_step}")
-        ionized += int(diag["n_ionized"])
+        ionized += int(diag.get("n_ionized", 0))
+        for key in colls:
+            if int(diag[key]) <= 0:
+                raise AssertionError(f"{label} step {k}: {key} = 0")
+            colls[key] += int(diag[key])
         for sc in cfg.species:
             if not bool(torch.isfinite(diag[f"{sc.name}/ke"])):
                 raise AssertionError(f"{label}: non-finite {sc.name}/ke")
         if cfg.field_solve and not bool(torch.isfinite(diag["field_energy"])):
             raise AssertionError(f"{label}: non-finite field energy")
+    counts = launches(counters)
     ne, ni, nn = (int(b.count()) for b in state.species)
-    if not (ne - n0[0] == ni - n0[1] == ionized == n0[2] - nn):
-        raise AssertionError(f"{label}: pair accounting broken: e {n0[0]}->"
-                             f"{ne}, D+ {n0[1]}->{ni}, D {n0[2]}->{nn}, "
-                             f"ionized {ionized}")
-    if ionized <= 0:
-        raise AssertionError(f"{label}: no ionization in {steps} steps")
+    if cfg.ionization is None:
+        if [ne, ni, nn] != n0:
+            raise AssertionError(f"{label}: counts moved {n0} -> "
+                                 f"{[ne, ni, nn]}")
+    else:
+        if not (ne - n0[0] == ni - n0[1] == ionized == n0[2] - nn):
+            raise AssertionError(
+                f"{label}: pair accounting broken: e {n0[0]}->{ne}, D+ "
+                f"{n0[1]}->{ni}, D {n0[2]}->{nn}, ionized {ionized}")
+        if ionized <= 0:
+            raise AssertionError(f"{label}: no ionization in {steps} steps")
+    extra = ""
+    if check_ke:
+        # elastic and e-e Coulomb keep the electron KE, charge exchange the
+        # D+ + D sum
+        ke1 = ke64(cfg, state.species)
+        re = abs(ke1["e"] - ke0["e"]) / ke0["e"]
+        rh = (abs(ke1["D+"] + ke1["D"] - ke0["D+"] - ke0["D"])
+              / (ke0["D+"] + ke0["D"]))
+        if not (re <= 2e-4 and rh <= 2e-4):
+            raise AssertionError(f"{label}: KE not kept: e rel {re}, "
+                                 f"D+ + D rel {rh}")
+        extra = (f", collisions {colls}, KE rel change e {re:.3g} "
+                 f"D+ + D {rh:.3g}")
     steady = statistics.median(times[1:]) if steps > 1 else times[0]
     log(f"main path {label}: {steps} steps, ms/step "
         f"{[round(t, 3) for t in times]}"
         f" (median after the first {steady:.3f}), ionized {ionized}, "
-        f"populations e {ne} D+ {ni} D {nn}")
+        f"populations e {ne} D+ {ni} D {nn}{extra}; launches {counts}; "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+        f"GiB")
     del state
     torch.cuda.empty_cache()
-    return steady
+    return steady, counts
+
+
+def collision_config(strategy="fused"):
+    """The §3.3 configuration with the collision menu on and ionization
+    off, as ``make_collision_config`` chooses, at the published widths;
+    the Coulomb pairs deflect through the kernel."""
+    from repro_torch.configs.pic_bit1 import make_collision_menu, make_config
+
+    return dataclasses.replace(
+        make_config(mover_strategy=strategy), ionization=None,
+        collisions=make_collision_menu(), collide_kernel=True)
+
+
+def run_launcher(argv, counters, label):
+    from repro_torch.launch import pic_run
+
+    for fn in counters.values():
+        fn.launches = 0
+    pic_run.main(argv)
+    counts = launches(counters)
+    log(f"main path {label}: launches {counts}")
+    return counts
 
 
 def main_path_phase(dev):
     from repro_torch.configs.pic_bit1 import make_config
-    from repro_torch.kernels import deposit, fused_cycle, mover
-    from repro_torch.launch import pic_run
+    from repro_torch.kernels import collide, deposit, fused_cycle, mover
 
     counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
-                "mover_push": mover.mover_push, "deposit": deposit.deposit}
-    for fn in counters.values():
-        fn.launches = 0
-    ms = {}
+                "mover_push": mover.mover_push, "deposit": deposit.deposit,
+                "ta_kick": collide.ta_kick}
+    ms, paths = {}, {}
     cfg = make_config(mover_strategy="fused")
-    ms["fused"] = drive(cfg, 5, "fused (field solve off)", counters,
-                        {"fused_push_deposit": 1, "mover_push": 0,
-                         "deposit": 1}, dev)
-    ms["fused_field"] = drive(
+    ms["fused"], paths["fused"] = drive(
+        cfg, 5, "fused (field solve off)", counters,
+        {"fused_push_deposit": 1, "mover_push": 0, "deposit": 1,
+         "ta_kick": 0}, dev)
+    ms["fused_field"], paths["fused_field"] = drive(
         dataclasses.replace(cfg, field_solve=True), 5,
         "fused + field solve (rho carried)", counters,
-        {"fused_push_deposit": 1, "mover_push": 0, "deposit": 2}, dev)
-    ms["explicit"] = drive(
+        {"fused_push_deposit": 1, "mover_push": 0, "deposit": 2,
+         "ta_kick": 0}, dev)
+    ms["explicit"], paths["explicit"] = drive(
         make_config(mover_strategy="explicit"), 3, "explicit",
-        counters, {"fused_push_deposit": 0, "mover_push": 3, "deposit": 1},
-        dev)
-    before = launches(counters)
-    pic_run.main(["--nc", "102400", "--particles", "10485760", "--strategy",
-                  "fused", "--steps", "3"])
-    after = launches(counters)
-    if after["fused_push_deposit"] - before["fused_push_deposit"] != 3:
+        counters, {"fused_push_deposit": 0, "mover_push": 3, "deposit": 1,
+                   "ta_kick": 0}, dev)
+    ms["collisions"], paths["collisions"] = drive(
+        collision_config(), 3, "collisions (menu + T-A kernel, field off)",
+        counters, {"fused_push_deposit": 1, "mover_push": 0, "deposit": 0,
+                   "ta_kick": 1}, dev)
+    paths["pic_run"] = run_launcher(
+        ["--nc", "102400", "--particles", "10485760", "--strategy",
+         "fused", "--steps", "3"], counters, "pic_run")
+    if paths["pic_run"]["fused_push_deposit"] != 3:
         raise AssertionError("pic_run did not run the fused kernel per step")
-    counts = launches(counters)
+    # the reference launcher deflects through ta_kick_ref, and so does the
+    # port's: no ta_kick launch here
+    paths["pic_run_collisions"] = run_launcher(
+        ["--nc", "102400", "--particles", "10485760", "--strategy",
+         "fused", "--steps", "2", "--collisions", "elastic,cx,coulomb"],
+        counters, "pic_run --collisions")
+    if (paths["pic_run_collisions"]["fused_push_deposit"] != 2
+            or paths["pic_run_collisions"]["ta_kick"] != 0):
+        raise AssertionError("pic_run --collisions: unexpected launches "
+                             f"{paths['pic_run_collisions']}")
+    counts = {name: sum(p[name] for p in paths.values())
+              for name in counters}
     for name, c in counts.items():
         if c <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
-                                 f"path")
-    log(f"main path launches: {counts}")
+                                 f"paths")
+    log(f"main path launches, summed over the paths: {counts}")
     return counts, ms
 
 
-def profile_phase(dev, step_ms):
-    """Where a §3.3 fused step (field solve off) spends device time: two
-    steps under torch.profiler, device kernels by self time. ``step_ms`` is
-    the unprofiled step time of phase 3, for the device's busy share."""
+# ---------------------------------------------------------------- phase 4 --
+
+def profile_phase(dev, cfg, label, step_ms, steps):
+    """Where a step of ``cfg`` spends device time: ``steps`` steps under
+    torch.profiler after one warm step, device time by operator and by
+    kernel. ``step_ms`` is the unprofiled step time of phase 3, for the
+    device's busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.pic_bit1 import make_config
     from repro_torch.core import pic
 
-    cfg = make_config(mover_strategy="fused")
     state = pic.init_state(cfg, 3, device=dev)
     step = pic.make_step(cfg)
     state, _ = step(state)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
+        for _ in range(steps):
             state, _ = step(state)
         torch.cuda.synchronize()
     # device kernels carry the device time; the aten ops that launched
@@ -401,24 +567,26 @@ def profile_phase(dev, step_ms):
     kernels, ops = [], []
     for e in prof.key_averages():
         if e.self_device_time_total > 0:
-            row = (e.self_device_time_total / 2e3, e.count / 2, e.key)
+            row = (e.self_device_time_total / (1e3 * steps),
+                   e.count / steps, e.key)
             (ops if e.device_type == DeviceType.CPU else kernels).append(row)
     if not kernels:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile {label}: the profiler recorded no device time (not "
+            f"measured)")
         return
     busy = sum(r[0] for r in kernels)
-    log(f"profile of a fused §3.3 step: device busy {busy:.3f} ms of "
+    log(f"profile of a {label} step: device busy {busy:.3f} ms of "
         f"{step_ms:.3f} ms/step ({100 * busy / step_ms:.1f} %), "
         f"{sum(r[1] for r in kernels):.0f} kernels a step")
     for title, rows in (("by operator", ops), ("by kernel", kernels)):
         log(f"  device ms a step {title}:")
-        for ms, count, name in sorted(rows, reverse=True)[:10]:
+        for ms, count, name in sorted(rows, reverse=True)[:12]:
             log(f"  {ms:8.3f} ms  x{count:4.0f}  {name[:90]}")
     del state
     torch.cuda.empty_cache()
 
 
-# ---------------------------------------------------------------- phase 4 --
+# ---------------------------------------------------------------- phase 5 --
 
 def card_vs_cpu_phase(dev):
     import numpy as np
@@ -465,6 +633,66 @@ def card_vs_cpu_phase(dev):
             f" {ev:.3g}, max |drho| {er:.3g}")
 
 
+def collision_card_vs_cpu_phase(dev):
+    """The collision menu with the deflection kernel, card against CPU.
+    Pairs follow cells, and one ulp in v can move a particle across a cell
+    and reshuffle its cell's pairs, so every step starts the card from a
+    copy of the CPU's state; with the field off the push is bitwise equal
+    on both, and so are the cells and the pairs."""
+    import numpy as np
+
+    from repro_torch.configs.pic_bit1 import make_collision_config
+    from repro_torch.core import pic
+
+    cfg = dataclasses.replace(make_collision_config(strategy="fused"),
+                              collide_kernel=True)
+    cpu = pic.init_state(cfg, 13, device="cpu")
+    rng = np.random.default_rng(6)
+    caps = [sc.capacity for sc in cfg.species]
+    length = cfg.length
+    f32 = np.float32
+
+    def draws_for(cc):
+        if cc.kind == "elastic":
+            c = caps[cc.species]
+            return {"uniform": rng.random(c, dtype=f32),
+                    "cos": (2 * rng.random(c, dtype=f32) - 1).astype(f32),
+                    "phi": (2 * np.pi * rng.random(c)).astype(f32)}
+        if cc.kind == "charge_exchange":
+            return {"uniform": rng.random(caps[cc.species], dtype=f32),
+                    "shuffle": rng.random(caps[cc.partner], dtype=f32)}
+        c = caps[cc.species]
+        return {"shuffle": rng.random(c, dtype=f32),
+                "normal": rng.standard_normal(c, dtype=f32),
+                "phi": (2 * np.pi * rng.random(c)).astype(f32)}
+
+    for k in range(3):
+        arrays = [{"x": b.x.numpy(), "v": b.v.numpy(), "w": b.w.numpy(),
+                   "alive": b.alive.numpy()} for b in cpu.species]
+        card = pic.state_from_numpy(cfg, arrays, cpu.step, device=dev)
+        draws = [draws_for(cc) for cc in cfg.collisions]
+        cpu, dc = pic.step_fn(cpu, cfg, draws=draws)
+        card, dg = pic.step_fn(card, cfg, draws=draws)
+        for key in COLL_KEYS + ("e/count", "D+/count", "D/count"):
+            if int(dc[key]) != int(dg[key]):
+                raise AssertionError(f"collisions card vs CPU step {k}: "
+                                     f"{key} {int(dg[key])} != "
+                                     f"{int(dc[key])}")
+        ex = ev = 0.0
+        for bc, bg in zip(cpu.species, card.species):
+            check_equal(f"collisions card vs CPU alive step {k}",
+                        bg.alive.cpu(), bc.alive)
+            ex = max(ex, periodic_err(bg.x.cpu(), bc.x, length))
+            vmax = float(bc.v.abs().max())
+            ev = max(ev, max_err(bg.v.cpu(), bc.v) / (1.0 + vmax))
+        if ex > 1e-6 * length or ev > 1e-5:
+            raise AssertionError(f"collisions card vs CPU step {k}: x {ex}, "
+                                 f"v {ev} (of 1+max|v|)")
+        log(f"collisions card vs CPU step {k}: counts and alive equal, "
+            f"{ {key: int(dg[key]) for key in COLL_KEYS} }, max |dx| "
+            f"{ex:.3g}, max |dv|/(1+max|v|) {ev:.3g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -496,10 +724,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
+    from repro_torch.configs.pic_bit1 import make_config
+
     kernels = kernel_phase(dev)
     counts, ms = main_path_phase(dev)
-    profile_phase(dev, ms["fused"])
+    profile_phase(dev, make_config(mover_strategy="fused"), "fused §3.3",
+                  ms["fused"], 2)
+    profile_phase(dev, collision_config(), "collision §3.3", ms["collisions"],
+                  1)
     card_vs_cpu_phase(dev)
+    collision_card_vs_cpu_phase(dev)
 
     log("kernels: " + "; ".join(
         f"{k} launches={counts[k]} max_abs_err={kernels[k]['max_abs_err']:.3g}"

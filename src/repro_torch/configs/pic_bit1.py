@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core import pic
+from repro_torch.core.collisions import CollisionConfig
 
 NC_GLOBAL = 102_400            # ~100K cells
 N_PER_SPECIES = 10_485_760     # ~10M macro-particles (x3 species = ~30M)
@@ -74,3 +75,70 @@ def make_see_config(nc: int = 4096, n: int = 262_144,
         cfg, boundary="absorb", wall_emission=((0, 0),),
         emission_yield=emission_yield, emission_vth=0.5,
         emission_weight=emission_weight)
+
+
+def make_resilience_config(nc: int = 64, n: int = 1024,
+                           strategy: str = "fused",
+                           emission_yield: float = 0.7,
+                           field_solve: bool = True,
+                           diag_every: int = 1) -> pic.PICConfig:
+    """The full-churn workload: absorbing walls + secondary electron
+    emission + MC ionization + the whole collision menu, equal species
+    capacities, and the field solve on, so that ``strategy='fused'`` carries
+    rho."""
+    cap = 2 * n
+    species = (
+        pic.SpeciesConfig("e", -1.0, 1.0, cap, n, vth=1.0),
+        pic.SpeciesConfig("D+", 1.0, 3672.0, cap, n, vth=0.02),
+        pic.SpeciesConfig("D", 0.0, 3672.0, cap, n, vth=0.05),
+    )
+    return pic.PICConfig(
+        nc=nc, dx=1.0, dt=0.5, species=species, field_solve=field_solve,
+        boundary="absorb", strategy=strategy,
+        collisions=make_collision_menu(),
+        ionization=(2, 0, 1), ionization_rate=5e-3, ionization_vth_e=1.0,
+        wall_emission=((0, 0),), emission_yield=emission_yield,
+        emission_vth=0.5, diag_every=diag_every,
+    )
+
+
+# the menu aliases the launcher's --collisions flag accepts
+COLLISION_MENU = ("elastic", "cx", "coulomb")
+
+
+def make_collision_menu(menu=COLLISION_MENU, *, rate_elastic: float = 2e-3,
+                        rate_cx: float = 2e-3, rate_coulomb: float = 1e-3
+                        ) -> tuple[CollisionConfig, ...]:
+    """The binary-collision menu over the (e-, D+, D) species triple:
+
+    * ``elastic``: electrons scatter elastically off the neutrals;
+    * ``cx``: resonant D+ <-> D charge exchange;
+    * ``coulomb``: intra-species e-e Coulomb scattering (Takizuka-Abe).
+
+    The default rates give a few-percent collision probability per step
+    at the bench-scale densities.
+    """
+    out = []
+    for m in menu:
+        if m == "elastic":
+            out.append(CollisionConfig("elastic", 0, 2, rate_elastic))
+        elif m in ("cx", "charge_exchange"):
+            out.append(CollisionConfig("charge_exchange", 1, 2, rate_cx))
+        elif m == "coulomb":
+            out.append(CollisionConfig("coulomb", 0, None, rate_coulomb))
+        else:
+            raise ValueError(
+                f"unknown collision menu entry {m!r}; valid entries are "
+                f"{COLLISION_MENU + ('charge_exchange',)}")
+    return tuple(out)
+
+
+def make_collision_config(nc: int = 4096, n: int = 262_144,
+                          menu=COLLISION_MENU, strategy: str = "unified",
+                          diag_every: int = 1, **rates) -> pic.PICConfig:
+    """The ``collisions`` scenario: the collision menu on the bench-scale
+    (e-, D+, D) plasma with MC ionization off."""
+    cfg = make_bench_config(nc=nc, n=n, strategy=strategy,
+                            diag_every=diag_every)
+    return dataclasses.replace(
+        cfg, ionization=None, collisions=make_collision_menu(menu, **rates))

@@ -173,3 +173,57 @@ def kill(buf: SpeciesBuffer, mask: torch.Tensor) -> SpeciesBuffer:
     """Mark ``mask`` particles dead (absorbed at a wall, ionized away)."""
     alive = buf.alive & ~mask
     return dataclasses.replace(buf, alive=alive, w=buf.w * alive)
+
+
+def cell_index(buf: SpeciesBuffer, dx: float, nc: int) -> torch.Tensor:
+    """Cell of each particle (int32); dead particles are parked at nc."""
+    c = torch.floor(buf.x / dx).to(torch.int32).clamp(0, nc - 1)
+    return torch.where(buf.alive, c, nc)
+
+
+def counts_per_cell(buf: SpeciesBuffer, dx: float, nc: int) -> torch.Tensor:
+    """Live particles per cell (nc,) int32, BIT1's ``np[isp][j]``."""
+    return torch.bincount(cell_index(buf, dx, nc).long(),
+                          minlength=nc + 1)[:nc].to(torch.int32)
+
+
+def _reorder(buf: SpeciesBuffer, order: torch.Tensor) -> SpeciesBuffer:
+    return SpeciesBuffer(x=buf.x[order], v=buf.v[order], w=buf.w[order],
+                         alive=buf.alive[order])
+
+
+def sort_by_cell(buf: SpeciesBuffer, dx: float, nc: int) -> SpeciesBuffer:
+    """Live particles grouped by cell (stable), dead particles at the tail."""
+    key = cell_index(buf, dx, nc)
+    return _reorder(buf, torch.sort(key, stable=True).indices)
+
+
+def cell_bins(cell: torch.Tensor, nc: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bin table of a cell-key array (ineligible rows keyed ``nc``).
+
+    Returns (counts, starts), both (nc + 1,) int32: in any stable sort by
+    ``cell``, cell c occupies positions [starts[c], starts[c] + counts[c]).
+    ``starts[nc]`` is the number of rows keyed below nc. A histogram and a
+    (nc + 1,) prefix sum: the cost scales with the cell count."""
+    counts = torch.bincount(cell.long(), minlength=nc + 1)[:nc + 1]
+    starts = torch.cumsum(counts, 0) - counts
+    return counts.to(torch.int32), starts.to(torch.int32)
+
+
+def compact(buf: SpeciesBuffer) -> SpeciesBuffer:
+    """Live particles first, in their order (stable)."""
+    return _reorder(buf, torch.sort((~buf.alive).to(torch.uint8),
+                                    stable=True).indices)
+
+
+def take(buf: SpeciesBuffer, idx: torch.Tensor) -> SpeciesBuffer:
+    """Gather a sub-buffer; an index equal to the capacity gives a dead,
+    zeroed row."""
+    cap = buf.capacity
+    valid = idx < cap
+    idx_c = idx.clamp(0, cap - 1)
+    return SpeciesBuffer(x=buf.x[idx_c] * valid,
+                         v=buf.v[idx_c] * valid[:, None],
+                         w=buf.w[idx_c] * valid,
+                         alive=buf.alive[idx_c] & valid)

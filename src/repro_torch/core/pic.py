@@ -1,19 +1,21 @@
 """PIC cycle assembly, single domain (the port of ``repro.core.pic``).
 
-One step: [deposit -> smooth -> Poisson -> E] -> push -> wall emission ->
-MC ionization -> diagnostics. The paper's §3.3 configuration turns the
-field phase off. When every species shares one capacity the species are
-stacked and pushed by one launch of the fused kernel; ``strategy='fused'``
-with the field solve on deposits the post-push charge in that launch and
-carries it to the next step's field solve (``PICState.rho``), with the
-births of the MC sources deposited into it as they land.
+One step: [deposit -> smooth -> Poisson -> E] -> push -> binary
+collisions -> wall emission -> MC ionization -> diagnostics. The paper's
+§3.3 configuration turns the field phase off. When every species shares
+one capacity the species are stacked and pushed by one launch of the fused
+kernel; ``strategy='fused'`` with the field solve on deposits the
+post-push charge in that launch and carries it to the next step's field
+solve (``PICState.rho``), with the births of the MC sources deposited into
+it as they land.
 
 The port runs eagerly: ``run`` is a Python loop over ``step_fn``. The
 state carries a ``torch.Generator`` where the reference carries a key;
-``step_fn(draws=...)`` takes the random arrays of its sources instead, in
-the reference's key order (one entry per wall-emission pair, then one for
-ionization). Entry points run on ``cuda`` unless the caller passes
-``device='cpu'``; with no card they raise.
+``step_fn(draws=...)`` takes the random arrays of its Monte-Carlo phases
+instead, in the reference's key order: one entry per collision-menu entry,
+then one per wall-emission pair, then one for ionization. Entry points run
+on ``cuda`` unless the caller passes ``device='cpu'``; with no card they
+raise.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ class PICConfig:
     emission_yield: float = 0.0
     emission_vth: float = 1.0
     emission_weight: float = 1.0       # macro-weight of emitted secondaries
-    # binary-collision menu: validated here, not yet run by the port
+    # binary-collision menu, run right after the push; collide_kernel
+    # deflects the Coulomb pairs through kernels.ops.ta_kick
     collisions: tuple[collisions.CollisionConfig, ...] = ()
     collide_kernel: bool = False
     # full-buffer diagnostics every k-th step; off-steps report zeros
@@ -316,13 +319,10 @@ def _push_all(state: PICState, cfg: PICConfig, e: torch.Tensor):
 def step_fn(state: PICState, cfg: PICConfig,
             draws: Sequence[dict] | None = None) -> tuple[PICState, dict]:
     """One PIC cycle. ``draws`` (optional) replaces the generator for the
-    MC sources: one dict per source in the reference's key order (each
-    wall-emission pair, then ionization), each with the ``"uniform"`` and
-    ``"normal"`` arrays that source would draw."""
-    if cfg.collisions:
-        raise NotImplementedError(
-            "the binary-collision menu is not ported yet; run with "
-            "collisions=()")
+    Monte-Carlo phases: one dict per phase in the reference's key order
+    (each collision-menu entry, each wall-emission pair, then ionization),
+    each with the arrays that phase would draw (see ``collisions`` and
+    ``boundaries``)."""
     grid = cfg.grid
     dev = state.species[0].x.device
     carried = _carries_rho(cfg)
@@ -339,6 +339,23 @@ def step_fn(state: PICState, cfg: PICConfig,
         e = compute_field(cfg, state.species)
 
     species, hits, diag, new_rho = _push_all(state, cfg, e)
+
+    if cfg.collisions:
+        # rates from the start-of-step cell densities; pairing and
+        # scattering act on the pushed velocities. Collisions change only
+        # v, so the carried rho needs no correction.
+        dens = {i: collisions.cell_density(grid, state.species[i])
+                for i in collisions.density_species(cfg.collisions)}
+        bufs = {i: species[i]
+                for i in collisions.involved_species(cfg.collisions)}
+        menu_draws = (None if draws is None else
+                      [next_draws() for _ in cfg.collisions])
+        bufs, cdiag = collisions.apply_menu(
+            state.gen, bufs, cfg.collisions, dens, grid, cfg.dt,
+            cfg.collide_kernel, menu_draws)
+        for i, b in bufs.items():
+            species[i] = b
+        diag.update(cdiag)
 
     if cfg.wall_emission and cfg.boundary == "absorb":
         eparams = EmissionParams(yield_=cfg.emission_yield,

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_cycle", "mover", "deposit")
+SOURCES = ("fused_cycle", "mover", "deposit", "collide")
 # -fmad=false: no multiply-add contraction, so each kernel rounds exactly as
 # its plain PyTorch version does (see csrc/pic_common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

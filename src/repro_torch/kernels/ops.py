@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import collide as _collide
 from repro_torch.kernels import deposit as _deposit
 from repro_torch.kernels import fused_cycle as _fused
 from repro_torch.kernels import mover as _mover
@@ -63,3 +64,12 @@ def deposit(x: torch.Tensor, q: torch.Tensor, *, x0: float, dx: float,
     """CIC deposition of charge q (n,) at positions x (n,) -> (nc+1,)/dx."""
     fn = _deposit.deposit if _on_card(x) else _deposit.deposit_plain
     return fn(x, q, x0=x0, dx=dx, nc=nc) / dx
+
+
+def ta_kick(u: torch.Tensor, delta: torch.Tensor,
+            phi: torch.Tensor) -> torch.Tensor:
+    """Takizuka-Abe deflection of pair relative velocities u (M, 3) by
+    tan(theta/2) = delta (M,) about azimuth phi (M,): du (M, 3) with
+    |u + du| = |u|."""
+    fn = _collide.ta_kick if _on_card(u) else _collide.ta_kick_plain
+    return fn(u, delta, phi)

@@ -3,14 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.pic_run --steps 100 \
         [--nc 4096] [--particles 131072] \
         [--strategy unified|explicit|async_batched|fused] \
-        [--field-solve] [--see-yield Y] [--diag-every K] [--device cuda|cpu]
+        [--field-solve] [--see-yield Y] [--collisions elastic,cx,coulomb] \
+        [--diag-every K] [--device cuda|cpu]
 
 The scenario is ``configs/pic_bit1.make_bench_config(nc, particles)``
 (buffers hold twice the initial particles); --see-yield Y switches the walls
-to absorbing and re-emits secondary electrons with yield Y. It runs on the
-CUDA device unless --device cpu is given, and stops with an error when no
-card is present. Prints the time per step and the final populations, in
-the reference launcher's form.
+to absorbing and re-emits secondary electrons with yield Y; --collisions
+adds the binary-collision menu (the deflection through ``ta_kick_ref``, as
+the reference launcher leaves ``collide_kernel`` off). It runs on the CUDA
+device unless --device cpu is given, and stops with an error when no card
+is present. Prints the collision totals (with --collisions), the time per
+step and the final populations, in the reference launcher's form.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ def main(argv=None) -> None:
     ap.add_argument("--see-yield", type=float, default=0.0,
                     help="enable absorbing walls + secondary electron "
                          "emission with this yield (0 = off)")
+    ap.add_argument("--collisions", default="",
+                    help="comma list from {elastic, cx, coulomb}: enable "
+                         "the per-cell binary-collision menu")
     ap.add_argument("--diag-every", type=int, default=1,
                     help="compute full diagnostics every K-th step")
     ap.add_argument("--device", default="cuda",
@@ -44,6 +50,7 @@ def main(argv=None) -> None:
     import torch
 
     from repro_torch.configs.pic_bit1 import (make_bench_config,
+                                              make_collision_menu,
                                               make_see_config)
     from repro_torch.core import pic
 
@@ -58,11 +65,15 @@ def main(argv=None) -> None:
                                 diag_every=args.diag_every)
     if args.field_solve:
         cfg = dataclasses.replace(cfg, field_solve=True)
+    if args.collisions:
+        menu = tuple(m for m in args.collisions.split(",") if m)
+        cfg = dataclasses.replace(cfg,
+                                  collisions=make_collision_menu(menu))
 
     dev = pic.resolve_device(args.device)
     t0 = time.perf_counter()
     state = pic.init_state(cfg, 0, device=dev)
-    final, _ = pic.run(cfg, args.steps, state=state)
+    final, diags = pic.run(cfg, args.steps, state=state)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -70,6 +81,10 @@ def main(argv=None) -> None:
     # zeros on off-steps
     counts = {f"{sc.name}/count": int(buf.count())
               for sc, buf in zip(cfg.species, final.species)}
+    colls = {k: int(v.sum()) for k, v in diags.items()
+             if k.startswith("coll_")}
+    if colls:
+        print("collisions (total):", colls)
     print(f"{args.steps} steps, 1 domain(s), async_n=1, rebalance_every=0, "
           f"strategy={args.strategy}: {wall:.2f}s "
           f"({wall / args.steps * 1e3:.1f} ms/step)")

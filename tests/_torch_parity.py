@@ -41,12 +41,48 @@ def _source_draws(key, shape):
             "normal": n(jax.random.normal(kv, shape + (3,), np.float32))}
 
 
+def _uniform(key, shape, lo=0.0, hi=1.0):
+    return n(jax.random.uniform(key, shape, np.float32, lo, hi))
+
+
+def collision_draws(cc, key, caps):
+    """The arrays one menu entry's operator draws from its key (see
+    ``repro.core.collisions``); ``caps`` maps species index -> capacity."""
+    if cc.kind == "elastic":
+        kp, k1, k2 = jax.random.split(key, 3)
+        cap = (caps[cc.species],)
+        return {"uniform": _uniform(kp, cap), "cos": _uniform(k1, cap, -1.0,
+                                                               1.0),
+                "phi": _uniform(k2, cap, 0.0, 2.0 * np.pi)}
+    if cc.kind == "charge_exchange":
+        kp, kn = jax.random.split(key)
+        return {"uniform": _uniform(kp, (caps[cc.species],)),
+                "shuffle": _uniform(kn, (caps[cc.partner],))}
+    kp, kd, kf = jax.random.split(key, 3)
+    cap = (caps[cc.species],)
+    return {"shuffle": _uniform(kp, cap),
+            "normal": n(jax.random.normal(kd, cap, np.float32)),
+            "phi": _uniform(kf, cap, 0.0, 2.0 * np.pi)}
+
+
+def menu_draws(cfgs, key, caps):
+    """One dict per menu entry, as ``apply_menu`` splits its key."""
+    out = []
+    for cc in cfgs:
+        key, sub = jax.random.split(key)
+        out.append(collision_draws(cc, sub, caps))
+    return out
+
+
 def step_draws(cfg, key):
     """The random arrays the reference's step_fn draws from ``key``, in its
-    key order: each wall-emission pair, then ionization."""
+    key order: each collision-menu entry, each wall-emission pair, then
+    ionization."""
     draws = []
     if cfg.collisions:
-        raise NotImplementedError("collision menu draws")
+        key, sub = jax.random.split(key)
+        draws += menu_draws(cfg.collisions, sub,
+                            [sc.capacity for sc in cfg.species])
     if cfg.wall_emission and cfg.boundary == "absorb":
         for primary, _ in cfg.wall_emission:
             key, sub = jax.random.split(key)

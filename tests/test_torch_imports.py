@@ -82,6 +82,11 @@ def test_config_fields_and_defaults_match(ref, port):
     ("make_bench_config", {}),
     ("make_bench_config", {"nc": 256, "n": 2048, "strategy": "explicit"}),
     ("make_see_config", {"nc": 256, "n": 2048}),
+    ("make_collision_config", {}),
+    ("make_collision_config", {"nc": 256, "n": 2048, "menu": ("coulomb",),
+                               "strategy": "fused", "rate_coulomb": 5e-3}),
+    ("make_resilience_config", {}),
+    ("make_resilience_config", {"nc": 256, "n": 2048, "field_solve": False}),
 ])
 def test_scenario_configs_match(name, kw):
     ref = getattr(ref_cfgs, name)(**kw)
@@ -90,6 +95,19 @@ def test_scenario_configs_match(name, kw):
     assert port.length == ref.length
     assert port_pic._carries_rho(port) == ref_pic._carries_rho(ref)
     assert port_pic._stackable(port) == ref_pic._stackable(ref)
+
+
+@pytest.mark.parametrize("menu", [("elastic", "cx", "coulomb"),
+                                  ("charge_exchange",), ("coulomb", "bogus")])
+def test_collision_menu_matches_reference(menu):
+    def build(cfgs):
+        try:
+            return [dataclasses.asdict(c)
+                    for c in cfgs.make_collision_menu(menu, rate_cx=5e-3)]
+        except ValueError as e:
+            return str(e)
+
+    assert build(port_cfgs) == build(ref_cfgs)
 
 
 @pytest.mark.parametrize("bad", [

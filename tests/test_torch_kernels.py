@@ -1,6 +1,7 @@
 """The plain versions of the port's kernels against the reference's Pallas
 kernels (``repro.kernels.ops``, interpret mode off-TPU) and oracles
-(``repro.kernels.ref``), over the sweep of ``tests/test_kernels.py``.
+(``repro.kernels.ref``, ``collisions.ta_kick_ref``), over the sweep of
+``tests/test_kernels.py`` and ``tests/test_collisions_physics.py``.
 
 Tolerances are those of ``tests/test_kernels.py``: x/v/w rtol = atol = 2e-5
 (the reference bakes q/m*dt and the rotation scalars in float64, the port
@@ -16,8 +17,10 @@ import pytest
 import torch
 
 from _torch_parity import n, t
+from repro.core import collisions as ref_coll
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref
+from repro_torch.kernels import collide as port_collide
 from repro_torch.kernels import deposit as port_deposit
 from repro_torch.kernels import fused_cycle as port_fused
 from repro_torch.kernels import mover as port_mover
@@ -208,11 +211,38 @@ def test_plain_versions_mirror_each_other():
     assert torch.equal(dep, fu[6])
 
 
+@pytest.mark.parametrize("m", [512, 1000, 3])
+def test_ta_kick_plain_matches_reference(m):
+    """Against the reference's Pallas kernel (interpret mode) and its
+    ta_kick_ref, to atol 1e-6: rows along +z and -z take the degenerate
+    branch, delta = 0 rows deflect by exactly 0, |u + du| = |u|."""
+    rng = np.random.default_rng(m)
+    u = rng.normal(size=(m, 3)).astype(np.float32)
+    u[0] = (0.0, 0.0, 2.0)
+    u[1] = (0.0, 0.0, -1.5)
+    delta = (0.5 * rng.normal(size=m)).astype(np.float32)
+    delta[2::7] = 0.0
+    phi = rng.uniform(0, 2 * np.pi, m).astype(np.float32)
+    got = n(ops.ta_kick(t(u), t(delta), t(phi)))
+    ju, jd, jp = (jnp.asarray(a) for a in (u, delta, phi))
+    for want in (ref_ops.ta_kick(ju, jd, jp),
+                 ref_coll.ta_kick_ref(ju, jd, jp)):
+        np.testing.assert_allclose(got, n(want), atol=1e-6, rtol=0)
+    assert (got[delta == 0.0] == 0.0).all()
+    np.testing.assert_allclose(np.linalg.norm(u + got, axis=1),
+                               np.linalg.norm(u, axis=1), rtol=1e-5)
+    # the degenerate frame: u along z turns by theta off the z axis
+    d2 = np.float32(delta[0]) ** 2
+    np.testing.assert_allclose(got[0, 2], -2.0 * (2 * d2 / (1 + d2)),
+                               rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("fn,args", [
     (port_fused.fused_push_deposit, "fused"),
     (port_mover.mover_push, "mover"),
     (port_deposit.deposit, "deposit"),
-], ids=["fused", "mover", "deposit"])
+    (port_collide.ta_kick, "ta_kick"),
+], ids=["fused", "mover", "deposit", "ta_kick"])
 def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
     """A kernel wrapper never computes on the CPU: it raises before any
     build or launch, and its launch count stays put."""
@@ -228,6 +258,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
             fn(x, torch.zeros(4, 3), x > 0, torch.zeros(9), x0=0.0, dx=1.0,
                nc=8, length=8.0, qm_dt=0.1, dt=0.1, b=(0.0, 0.0, 0.0),
                boundary="periodic")
+        elif args == "ta_kick":
+            fn(torch.zeros(4, 3), x, x)
         else:
             fn(x, x, x0=0.0, dx=1.0, nc=8)
     assert fn.launches == before
