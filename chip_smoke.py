@@ -28,7 +28,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
    random draws: the small bench configuration, fused with the field solve,
    3 steps; and the small collision configuration, fused with
    ``collide_kernel=True``, 3 steps each started from the CPU's state;
-6. one line of JSON with every kernel's numbers, then the result line.
+6. flash attention against its plain version on the card: at the prefill
+   shape of qwen2-0.5b (8 x 4,096 tokens, 14 query heads over 2 KV heads,
+   head dim 64, causal) in bf16 and f32, and at ragged shapes (lengths that
+   are no multiple of a tile, fewer queries than keys, windows, GQA groups
+   1/2/7/8, head dims 16 to 256, the head-folded (bh, s, hd) signature);
+   times by CUDA events beside its bound and beside PyTorch's
+   ``scaled_dot_product_attention`` on the same tensors (a yardstick only:
+   the port never calls it);
+7. the LM serving path at the full width and depth of qwen2-0.5b, weights
+   from a seeded generator on the card, through ``get_config``,
+   ``registry.build``, ``make_prefill`` and ``make_serve_step``: a prefill of
+   8 prompts x 4,096 tokens (logits at the last position; exactly one flash
+   launch a layer), 4 requests of 512-token prompts fed by teacher-forced
+   decode steps then 32 greedy tokens (no flash launch), the decode logits
+   at every prompt position against the prefill's on the same prompts
+   (rel < 0.02), the ``serve_lm --full`` command line, and a profile of one
+   prefill;
+8. card against CPU for the LM: qwen2-0.5b at full width cut to 2 layers,
+   in f32, on the same weights and a 128-token prompt: prefill and decode
+   logits within 1e-4 of max |logits|, greedy tokens equal wherever the
+   top-2 gap exceeds that band;
+9. one line of JSON with every kernel's numbers, then the result line.
 
 Exits non-zero and prints no result without a CUDA device, or when the
 port's sources are not beside this script.
@@ -53,6 +74,7 @@ ROOT = Path(__file__).resolve().parent
 # first and its operations over the second
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12     # dense bf16 tensor cores
 # flops a slot, counted from the device code: CIC weights 6, gather 6, two
 # half kicks 5, drift 2, periodic wrap 4, w*alive 1; the deposit adds CIC 6
 # and 4 for the two weighted charges
@@ -67,15 +89,24 @@ COLL_KEYS = ("coll_elastic", "coll_cx", "coll_coulomb")
 
 TOL = 2e-5          # x / v / w, as tests/test_kernels.py
 RHO_TOL = 1e-3      # rho, as tests/test_kernels.py
+# flash attention against its plain version, (rtol, atol) by input dtype.
+# f32 as tests/test_flash_attention.py holds the Pallas kernel. In bf16 both
+# sides sum in f32 from the same inputs and round the output once, so they
+# may differ by about one bf16 ulp: rtol two ulps (1/64), atol 4e-3 (two ulps
+# at 0.5). The reference test's 3e-2 compares against a bf16 oracle and
+# would be as large as a typical output at S 4096.
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1 / 64, 4e-3)}
+LM_ARCH = "qwen2-0.5b"
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = F32_FLOPS) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOPS * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -548,7 +579,6 @@ def profile_phase(dev, cfg, label, step_ms, steps):
     torch.profiler after one warm step, device time by operator and by
     kernel. ``step_ms`` is the unprofiled step time of phase 3, for the
     device's busy share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import pic
@@ -562,28 +592,37 @@ def profile_phase(dev, cfg, label, step_ms, steps):
         for _ in range(steps):
             state, _ = step(state)
         torch.cuda.synchronize()
+    report_profile(prof, f"a {label} step", steps, step_ms)
+    del state
+    torch.cuda.empty_cache()
+
+
+def report_profile(prof, label, reps, host_ms):
+    """Device time by operator and by kernel, per repetition, and the
+    device's busy share of ``host_ms`` (the unprofiled host-clock time of
+    one repetition)."""
+    from torch.autograd import DeviceType
+
     # device kernels carry the device time; the aten ops that launched
     # them carry the same time again as their self device time
     kernels, ops = [], []
     for e in prof.key_averages():
         if e.self_device_time_total > 0:
-            row = (e.self_device_time_total / (1e3 * steps),
-                   e.count / steps, e.key)
+            row = (e.self_device_time_total / (1e3 * reps),
+                   e.count / reps, e.key)
             (ops if e.device_type == DeviceType.CPU else kernels).append(row)
     if not kernels:
-        log(f"profile {label}: the profiler recorded no device time (not "
+        log(f"profile of {label}: the profiler recorded no device time (not "
             f"measured)")
         return
     busy = sum(r[0] for r in kernels)
-    log(f"profile of a {label} step: device busy {busy:.3f} ms of "
-        f"{step_ms:.3f} ms/step ({100 * busy / step_ms:.1f} %), "
-        f"{sum(r[1] for r in kernels):.0f} kernels a step")
+    log(f"profile of {label}: device busy {busy:.3f} ms of "
+        f"{host_ms:.3f} ms ({100 * busy / host_ms:.1f} %), "
+        f"{sum(r[1] for r in kernels):.0f} kernels")
     for title, rows in (("by operator", ops), ("by kernel", kernels)):
-        log(f"  device ms a step {title}:")
+        log(f"  device ms {title}:")
         for ms, count, name in sorted(rows, reverse=True)[:12]:
             log(f"  {ms:8.3f} ms  x{count:4.0f}  {name[:90]}")
-    del state
-    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -693,6 +732,326 @@ def collision_card_vs_cpu_phase(dev):
             f"{ex:.3g}, max |dv|/(1+max|v|) {ev:.3g}")
 
 
+# ---------------------------------------------------------------- phase 6 --
+
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask lets through: the work this input
+    needs, whatever tiles a kernel computes."""
+    qpos = torch.arange(sq, dtype=torch.int64)
+    hi = torch.clamp(qpos, max=skv - 1) if causal else torch.full_like(
+        qpos, skv - 1)
+    lo = torch.clamp(qpos - window + 1, min=0) if window > 0 else \
+        torch.zeros_like(qpos)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def compare_flash(fa, q, k, v, causal, window, label):
+    """Kernel vs plain on the same inputs, elementwise within FLASH_TOL of
+    the input dtype; returns the max abs error."""
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    rtol, atol = FLASH_TOL[q.dtype]
+    g, w = got.float(), want.float()
+    if got.shape != q.shape or got.dtype != q.dtype:
+        raise AssertionError(f"flash {label}: {got.shape} {got.dtype}")
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"flash {label}: non-finite output")
+    bad = int(((g - w).abs() > atol + rtol * w.abs()).sum())
+    if bad:
+        raise AssertionError(f"flash {label}: {bad} entries differ from the "
+                             f"plain version by more than atol {atol} + "
+                             f"rtol {rtol:.4g} (max "
+                             f"{max_err(g, w)})")
+    return max_err(g, w)
+
+
+def flash_phase(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def qkv(b, sq, skv, h, kvh, d, dtype):
+        return tuple(torch.randn(b, s, n, d, generator=gen, device=dev)
+                     .to(dtype) for s, n in ((sq, h), (skv, kvh), (skv, kvh)))
+
+    # ragged: (B, Sq, Skv, H, KVH, D, causal, window)
+    cases = [(2, 1000, 1000, 4, 2, 64, True, 0),
+             (2, 384, 1024, 8, 1, 128, True, 0),
+             (1, 1000, 1000, 14, 2, 64, True, 128),
+             (1, 777, 777, 4, 4, 256, True, 256),
+             (1, 640, 700, 28, 4, 128, True, 0),
+             (1, 333, 333, 16, 2, 128, True, 0),
+             (2, 500, 700, 4, 4, 256, False, 0),
+             (1, 300, 300, 4, 2, 16, True, 0),
+             (1, 300, 300, 4, 4, 32, True, 0)]
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in cases:
+            *shape, causal, window = c
+            err = compare_flash(fa, *qkv(*shape, dtype), causal, window,
+                                f"{c} {dtype}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+        # the reference kernel's head-folded signature, through ops
+        q, k, v = (torch.randn(6, 640, 64, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        for causal in (True, False):
+            got = ops.flash_attention(q, k, v, causal=causal)
+            want = fa.flash_attention_plain(
+                q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                causal=causal).squeeze(2)
+            rtol, atol = FLASH_TOL[dtype]
+            if not torch.allclose(got.float(), want.float(), rtol=rtol,
+                                  atol=atol):
+                raise AssertionError(f"flash (bh, s, hd) {dtype} causal="
+                                     f"{causal}")
+    log(f"flash: {len(cases)} ragged shapes and the (bh, s, hd) signature "
+        f"agree with the plain version, max abs err f32 "
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+
+    # the main path's shape: one layer of the qwen2-0.5b prefill
+    cfg = get_config(LM_ARCH)
+    b, s, h, kvh, d = 8, 4096, cfg.n_heads, cfg.kv_heads, cfg.hd
+    err32 = compare_flash(fa, *qkv(b, s, s, h, kvh, d, torch.float32), True,
+                          0, "main shape f32")
+    q, k, v = qkv(b, s, s, h, kvh, d, cfg.dtype)
+    err = compare_flash(fa, q, k, v, True, 0, "main shape bf16")
+    pairs = b * h * attention_pairs(s, s, True, 0)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOPS)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    r = dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:33",
+             max_abs_err=err,
+             ms=median_ms(lambda: fa.flash_attention(q, k, v), 20),
+             plain_ms=median_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
+             bound_ms=bms, bound_by=by,
+             library_ms=median_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True), 20))
+    log(f"kernel flash_attention at the main-path shape (B {b}, S {s}, H "
+        f"{h}, KVH {kvh}, D {d}, causal, bf16): max_abs_err {err:.3g} (f32 "
+        f"{err32:.3g}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}: {4 * d * pairs / 1e9:.1f} GFLOP, "
+        f"{pairs / 1e9:.3f} G exponentials, {nbytes / 1e6:.1f} MB), "
+        f"scaled_dot_product_attention {r['library_ms']:.4f} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------- phase 7 --
+
+def rel_err(got, want) -> float:
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def check_logits(label, logits, vocab):
+    if logits.shape[-1] != vocab or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)} not "
+                             f"finite of width {vocab}")
+
+
+def lm_serve_phase(dev):
+    """The serving path at full qwen2-0.5b; returns (flash launches summed
+    over the paths, numbers for the summary)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
+    from repro_torch.models.registry import build
+    from repro_torch.train.serve_step import make_prefill, make_serve_step
+
+    cfg = get_config(LM_ARCH)
+    model = build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prefill = make_prefill(cfg)
+    out, launches = {}, 0
+
+    def run_prefill(tokens, label):
+        nonlocal launches
+        fa.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hidden, _ = prefill(params, tokens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = fa.flash_attention.launches
+        if n != cfg.n_layers:
+            raise AssertionError(f"{label}: {n} flash launches, expected "
+                                 f"one a layer ({cfg.n_layers})")
+        launches += n
+        return hidden, ms
+
+    # prefill: 8 prompts x 4,096 tokens, logits at the last position only
+    b, s = 8, 4096
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    times = []
+    for k in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        hidden, ms = run_prefill(tokens, f"prefill {k}")
+        times.append(ms)
+        last = model.logits(params, hidden[:, -1:])
+        check_logits("prefill", last, cfg.vocab)
+        del hidden, last
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["prefill_ms"] = times[-1]
+    out["prefill_tok_s"] = b * s / (times[-1] / 1e3)
+    log(f"LM prefill {LM_ARCH} {b} x {s}: ms {[round(t, 3) for t in times]} "
+        f"(steady {times[-1]:.3f} ms, {out['prefill_tok_s']:.0f} prompt "
+        f"tok/s), peak memory {peak:.2f} GiB, flash launches "
+        f"{cfg.n_layers} a prefill")
+    torch.cuda.empty_cache()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        hidden, _ = prefill(params, tokens)
+        torch.cuda.synchronize()
+    report_profile(prof, f"one {LM_ARCH} prefill of {b} x {s}", 1,
+                   times[-1])
+    del hidden, tokens
+    torch.cuda.empty_cache()
+
+    # serve: 4 requests of 512-token prompts, teacher-forced decode steps,
+    # then 32 greedy tokens
+    b, plen, new = 4, 512, 32
+    prompts = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+                            device=dev)
+    cache = model.init_cache(b, plen + new + 1, dev)   # + the profiled step
+    serve = make_serve_step(cfg)
+    dec = torch.empty(b, plen, cfg.vocab, dtype=cfg.dtype, device=dev)
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(plen):
+        lg, cache = model.decode_step(params, prompts[:, t:t + 1], cache, t)
+        dec[:, t] = lg[:, 0]
+    torch.cuda.synchronize()
+    prompt_ms = (time.perf_counter() - t0) * 1e3 / plen
+    nxt = torch.argmax(dec[:, -1], dim=-1).to(torch.int32)[:, None]
+    generated, step_ms = [nxt], []
+    for t in range(plen, plen + new):
+        t0 = time.perf_counter()
+        nxt, cache = serve(params, nxt, cache, t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        generated.append(nxt)
+    if fa.flash_attention.launches:
+        raise AssertionError(f"decode launched flash "
+                             f"{fa.flash_attention.launches} times")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve(params, nxt, cache, plen + new)
+        torch.cuda.synchronize()
+    report_profile(prof, f"one {LM_ARCH} decode step at batch {b}", 1,
+                   statistics.median(step_ms))
+    gen_tok = torch.cat(generated, dim=1)
+    check_logits("decode", dec, cfg.vocab)
+    if not bool(((gen_tok >= 0) & (gen_tok < cfg.vocab)).all()):
+        raise AssertionError("a generated token lies outside the vocabulary")
+    out["decode_ms"] = statistics.median(step_ms)
+    out["decode_tok_s"] = b * new / (sum(step_ms) / 1e3)
+    log(f"LM serve {LM_ARCH}: batch {b}, {plen}-token prompts by decode "
+        f"steps ({prompt_ms:.3f} ms a step), then {new} greedy tokens: "
+        f"{out['decode_ms']:.3f} ms a decode step (median; steps "
+        f"{[round(t, 3) for t in step_ms[:4]]}...), {out['decode_tok_s']:.1f}"
+        f" tok/s, flash launches 0; first row {gen_tok[0, :8].tolist()}")
+    del cache
+
+    # decode against prefill on the same prompts
+    hidden, _ = run_prefill(prompts, "prefill of the serve prompts")
+    ref = model.logits(params, hidden)
+    rel = rel_err(dec, ref)
+    if not rel < 0.02:
+        raise AssertionError(f"decode vs prefill logits: rel {rel}")
+    log(f"LM decode vs prefill logits over {b} x {plen} prompt positions: "
+        f"max |diff| / max |logits| = {rel:.4g} (band 0.02)")
+    out["decode_vs_prefill_rel"] = rel
+    del hidden, ref, dec
+    torch.cuda.empty_cache()
+
+    fa.flash_attention.launches = 0
+    serve_lm.main(["--full", "--batch", "4", "--prompt-len", "512",
+                   "--tokens", "32"])
+    n = fa.flash_attention.launches
+    # two prefills of one launch a layer: an untimed one, then the timed one
+    if n != 2 * cfg.n_layers:
+        raise AssertionError(f"serve_lm --full: {n} flash launches")
+    launches += n
+    log(f"main path serve_lm --full: flash launches {n}")
+    del params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+# ---------------------------------------------------------------- phase 8 --
+
+def lm_card_vs_cpu_phase(dev):
+    """qwen2-0.5b at full width, 2 layers, f32, one 128-token prompt: the
+    same weights and tokens on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              dtype=torch.float32)
+    model = build(cfg)
+    cpu = model.init_params(torch.Generator().manual_seed(3))
+    card = {k: ({n: {w: t.to(dev) for w, t in sub.items()}
+                 for n, sub in v.items()} if k == "blocks" else v.to(dev))
+            for k, v in cpu.items()}
+    tokens = torch.randint(0, cfg.vocab, (1, 128),
+                           generator=torch.Generator().manual_seed(4))
+    band = 1e-4
+
+    def agree(label, got, want):
+        """Logits within band of max |want|; greedy tokens equal wherever
+        the top-2 gap of the CPU's logits exceeds the band."""
+        got = got.cpu()
+        rel = rel_err(got, want)
+        top2 = torch.topk(want, 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > band * float(
+            want.abs().max())
+        same = torch.argmax(got, -1) == torch.argmax(want, -1)
+        if not (rel < band and bool(same[clear].all())):
+            raise AssertionError(f"LM card vs CPU {label}: rel {rel}, "
+                                 f"{int((~same & clear).sum())} clear greedy "
+                                 f"tokens differ")
+        return rel, int(clear.sum()), int(clear.numel())
+
+    results = []
+    for label, params, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        h, _ = model.forward(params, tokens.to(device))
+        pre = model.logits(params, h)
+        cache = model.init_cache(1, 128 + 9, device)
+        steps = []
+        for t in range(128):
+            lg, cache = model.decode_step(params, tokens[:, t:t + 1]
+                                          .to(device), cache, t)
+            steps.append(lg[:, 0])
+        results.append((pre, torch.stack(steps, 1), cache))
+    (pc, dc, cc), (pg, dg, cg) = results
+    r_pre = agree("prefill", pg, pc)
+    r_dec = agree("decode", dg, dc)
+    # 8 greedy tokens, both fed the CPU's choice
+    nxt = torch.argmax(dc[:, -1], -1)[:, None]
+    gaps = []
+    for t in range(128, 136):
+        lc, cc = model.decode_step(cpu, nxt, cc, t)
+        lg, cg = model.decode_step(card, nxt.to(dev), cg, t)
+        gaps.append(agree(f"greedy step {t}", lg[:, 0], lc[:, 0])[0])
+        nxt = torch.argmax(lc[:, 0], -1)[:, None]
+    log(f"LM card vs CPU ({LM_ARCH}, width {cfg.d_model}, 2 layers, f32, "
+        f"128-token prompt): prefill rel {r_pre[0]:.3g} (greedy equal on "
+        f"{r_pre[1]}/{r_pre[2]} clear positions), decode rel {r_dec[0]:.3g} "
+        f"({r_dec[1]}/{r_dec[2]}), 8 greedy steps max rel {max(gaps):.3g}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -734,12 +1093,19 @@ def main() -> int:
                   1)
     card_vs_cpu_phase(dev)
     collision_card_vs_cpu_phase(dev)
+    kernels["flash_attention"] = flash_phase(dev)
+    counts["flash_attention"], lm = lm_serve_phase(dev)
+    lm_card_vs_cpu_phase(dev)
 
     log("kernels: " + "; ".join(
         f"{k} launches={counts[k]} max_abs_err={kernels[k]['max_abs_err']:.3g}"
         for k in kernels))
     log(f"main path ms/step (median after the first step): "
         + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    log(f"LM {LM_ARCH}: prefill 8 x 4096 {lm['prefill_ms']:.3f} ms "
+        f"({lm['prefill_tok_s']:.0f} tok/s), decode {lm['decode_ms']:.3f} "
+        f"ms/step at batch 4 ({lm['decode_tok_s']:.1f} tok/s), decode vs "
+        f"prefill rel {lm['decode_vs_prefill_rel']:.4g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for k, r in kernels.items():

@@ -32,6 +32,7 @@ from repro_torch.core.grid import (Grid1D, deposit, deposit_stacked,
                                    deposit_windowed)
 from repro_torch.core.particles import (SpeciesBuffer, init_uniform,
                                         stack_species, unstack_species)
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,17 +133,6 @@ class PICState:
     # otherwise): deposited in the push of step k, read by the field solve
     # of step k+1
     rho: torch.Tensor | None = None
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; raises when a card is asked for
-    and none is present (the port never continues on the CPU instead)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                           "available; pass device='cpu' for the plain "
-                           "PyTorch versions")
-    return dev
 
 
 def _stackable(cfg: PICConfig) -> bool:

@@ -23,9 +23,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_cycle", "mover", "deposit", "collide")
-# -fmad=false: no multiply-add contraction, so each kernel rounds exactly as
-# its plain PyTorch version does (see csrc/pic_common.cuh)
+SOURCES = ("fused_cycle", "mover", "deposit", "collide", "flash_attention")
+# -fmad=false: no multiply-add contraction, so each PIC kernel rounds
+# exactly as its plain PyTorch version does (see csrc/pic_common.cuh); flash
+# attention writes its multiply-adds as fmaf() instead
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

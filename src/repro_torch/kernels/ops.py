@@ -5,6 +5,8 @@ A CUDA tensor launches the hand-written kernel (``kernels/*.py`` +
 kernel's plain PyTorch version, because the caller asked for the CPU. Any
 other device raises. Units follow the reference's ``kernels/ops.py``: rho
 comes back as (nc+1,)/dx, with a carried rho added outside the kernel.
+Attention takes the model's (B, S, H, D) layout, or the reference's
+head-folded (bh, s, hd).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.kernels import collide as _collide
 from repro_torch.kernels import deposit as _deposit
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import fused_cycle as _fused
 from repro_torch.kernels import mover as _mover
 
@@ -73,3 +76,16 @@ def ta_kick(u: torch.Tensor, delta: torch.Tensor,
     |u + du| = |u|."""
     fn = _collide.ta_kick if _on_card(u) else _collide.ta_kick_plain
     return fn(u, delta, phi)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Masked online-softmax attention, the function of the reference's
+    ``chunked_attention``: q (B, Sq, H, D) against k, v (B, Skv, KVH, D),
+    H a multiple of KVH; or the reference kernel's head-folded signature,
+    q (bh, sq, hd) against k, v (bh, skv, hd). Returns q's shape and dtype."""
+    fn = _flash.flash_attention if _on_card(q) else _flash.flash_attention_plain
+    if q.dim() == 3:
+        return fn(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
+                  causal=causal, window=window).squeeze(2)
+    return fn(q, k, v, causal=causal, window=window)

@@ -52,6 +52,10 @@ def test_port_imports_with_jax_blocked():
             "sys.modules['jaxlib'] = None; sys.modules['repro'] = None\n"
             "import repro_torch.core.pic, repro_torch.kernels.ops\n"
             "import repro_torch.launch.pic_run, repro_torch.configs.pic_bit1\n"
+            "import repro_torch.models.lm, repro_torch.models.registry\n"
+            "import repro_torch.train.serve_step, repro_torch.launch.serve_lm\n"
+            "from repro_torch.configs import PORTED, get_config\n"
+            "[get_config(a) for a in PORTED]\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(ROOT / "src"),

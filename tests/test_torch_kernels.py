@@ -22,6 +22,7 @@ from repro.kernels import ops as ref_ops
 from repro.kernels import ref
 from repro_torch.kernels import collide as port_collide
 from repro_torch.kernels import deposit as port_deposit
+from repro_torch.kernels import flash_attention as port_flash
 from repro_torch.kernels import fused_cycle as port_fused
 from repro_torch.kernels import mover as port_mover
 from repro_torch.kernels import ops
@@ -242,7 +243,8 @@ def test_ta_kick_plain_matches_reference(m):
     (port_mover.mover_push, "mover"),
     (port_deposit.deposit, "deposit"),
     (port_collide.ta_kick, "ta_kick"),
-], ids=["fused", "mover", "deposit", "ta_kick"])
+    (port_flash.flash_attention, "flash"),
+], ids=["fused", "mover", "deposit", "ta_kick", "flash"])
 def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
     """A kernel wrapper never computes on the CPU: it raises before any
     build or launch, and its launch count stays put."""
@@ -260,6 +262,9 @@ def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
                boundary="periodic")
         elif args == "ta_kick":
             fn(torch.zeros(4, 3), x, x)
+        elif args == "flash":
+            q = torch.zeros(1, 4, 2, 64)
+            fn(q, q, q, causal=True)
         else:
             fn(x, x, x0=0.0, dx=1.0, nc=8)
     assert fn.launches == before
