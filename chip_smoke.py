@@ -7,6 +7,9 @@ their plain PyTorch versions.
 Phases (any failure raises and ends the run with a non-zero exit):
 
 1. the card, the versions, and the build of ``src/repro_torch/csrc/*.cu``;
+   for each flash-attention instantiation its registers, spills, shared
+   memory and HGMMA (wgmma) instructions in its SASS: a bf16 one that
+   spills or holds no HGMMA fails the run;
 2. each kernel against its plain version on the card, at the shapes of the
    paper's §3.3 run (3 species x 16,777,216 slots, 102,401 nodes; the
    Takizuka-Abe deflection on the within-cell pairs of the 16,777,216
@@ -32,10 +35,12 @@ Phases (any failure raises and ends the run with a non-zero exit):
    shape of qwen2-0.5b (8 x 4,096 tokens, 14 query heads over 2 KV heads,
    head dim 64, causal) in bf16 and f32, and at ragged shapes (lengths that
    are no multiple of a tile, fewer queries than keys, windows, GQA groups
-   1/2/7/8, head dims 16 to 256, the head-folded (bh, s, hd) signature);
-   times by CUDA events beside its bound and beside PyTorch's
-   ``scaled_dot_product_attention`` on the same tensors (a yardstick only:
-   the port never calls it);
+   1/2/7/8, head dims 16 to 256, rows that see no key, the head-folded
+   (bh, s, hd) signature); times by CUDA events beside its bound and beside
+   PyTorch's ``scaled_dot_product_attention`` on the same tensors (a
+   yardstick only: the port never calls it), and the same for one layer of
+   qwen2-7b (B 2, S 4,096, 28/4 heads, D 128) and of gemma-7b (B 1, S
+   4,096, 16/16 heads, D 256), for information;
 7. the LM serving path at the full width and depth of qwen2-0.5b, weights
    from a seeded generator on the card, through ``get_config``,
    ``registry.build``, ``make_prefill`` and ``make_serve_step``: a prefill of
@@ -59,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -786,7 +792,9 @@ def flash_phase(dev):
              (1, 333, 333, 16, 2, 128, True, 0),
              (2, 500, 700, 4, 4, 256, False, 0),
              (1, 300, 300, 4, 2, 16, True, 0),
-             (1, 300, 300, 4, 4, 32, True, 0)]
+             (1, 300, 300, 4, 4, 32, True, 0),
+             # queries past Skv + window: rows that see no key at all
+             (1, 200, 90, 2, 1, 64, True, 16)]
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         for c in cases:
@@ -818,29 +826,101 @@ def flash_phase(dev):
                           0, "main shape f32")
     q, k, v = qkv(b, s, s, h, kvh, d, cfg.dtype)
     err = compare_flash(fa, q, k, v, True, 0, "main shape bf16")
-    pairs = b * h * attention_pairs(s, s, True, 0)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOPS)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     r = dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:33",
              max_abs_err=err,
-             ms=median_ms(lambda: fa.flash_attention(q, k, v), 20),
              plain_ms=median_ms(lambda: fa.flash_attention_plain(q, k, v), 5),
-             bound_ms=bms, bound_by=by,
-             library_ms=median_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True), 20))
+             **time_flash(fa, q, k, v))
     log(f"kernel flash_attention at the main-path shape (B {b}, S {s}, H "
         f"{h}, KVH {kvh}, D {d}, causal, bf16): max_abs_err {err:.3g} (f32 "
         f"{err32:.3g}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-        f"{bms:.4f} ms ({by}: {4 * d * pairs / 1e9:.1f} GFLOP, "
-        f"{pairs / 1e9:.3f} G exponentials, {nbytes / 1e6:.1f} MB), "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['gflop']:.1f} GFLOP, "
+        f"{r['g_exp']:.3f} G exponentials, {r['mb']:.1f} MB), "
         f"scaled_dot_product_attention {r['library_ms']:.4f} ms")
-    del q, k, v, qt, kt, vt
+    del q, k, v
     torch.cuda.empty_cache()
-    return r
+
+    # one layer of the other configs' head shapes, for information
+    for arch, b in (("qwen2-7b", 2), ("gemma-7b", 1)):
+        c = get_config(arch)
+        q, k, v = qkv(b, s, s, c.n_heads, c.kv_heads, c.hd, c.dtype)
+        e = compare_flash(fa, q, k, v, True, 0, f"{arch} layer")
+        t = time_flash(fa, q, k, v)
+        log(f"flash one {arch} layer (B {b}, S {s}, H {c.n_heads}, KVH "
+            f"{c.kv_heads}, D {c.hd}, causal, bf16): max_abs_err {e:.3g}, "
+            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}"
+            f"), scaled_dot_product_attention {t['library_ms']:.4f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {key: r[key] for key in (
+        "name", "route", "source", "replaces", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+
+def time_flash(fa, q, k, v):
+    """Causal flash on (B, S, H, D) inputs by CUDA events, beside its
+    compute bound and SDPA on the same tensors."""
+    b, s, h, d = q.shape
+    pairs = b * h * attention_pairs(s, k.shape[1], True, 0)
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOPS)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(ms=median_ms(lambda: fa.flash_attention(q, k, v), 20),
+                library_ms=median_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True), 20),
+                bound_ms=bms, bound_by=by, gflop=4 * d * pairs / 1e9,
+                g_exp=pairs / 1e9, mb=nbytes / 1e6)
+
+
+def flash_build_phase(build_dir):
+    """What the compiler made of each flash instantiation: registers, spills
+    and shared memory; fails if a bf16 (tensor-core) instantiation spills or
+    holds no HGMMA (wgmma) instruction in its SASS."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    def short(mangled):
+        m = re.search(r"(flash_(?:wgmma_)?kernel)I((?:Li\d+E)+)E", mangled)
+        args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+        return f"{m.group(1)}<{args}>"
+
+    spills, fn = {}, None
+    for line in (build_dir / "flash_attention.log").read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = short(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spills[fn] = (int(m.group(1)), int(m.group(2)))
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build_dir / "libflash_attention.so")],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = short(m.group(1))
+            hgmma[fn] = 0
+        elif fn and re.search(r"\bHGMMA\b", line):
+            hgmma[fn] += 1
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in fa.HEAD_DIMS:
+            a = fa.kernel_attributes(d, dtype)
+            name = (f"flash_wgmma_kernel<{d}>" if dtype == torch.bfloat16 else
+                    f"flash_kernel<{d}, {fa.BLOCK_K[(dtype, d)]}>")
+            st, ld = spills[name]
+            log(f"  {name}: {a['registers']} registers, spill stores {st} B "
+                f"loads {ld} B, local {a['local_bytes']} B, shared "
+                f"{a['static_smem']} B static + {a['dynamic_smem']} B "
+                f"dynamic, {hgmma[name]} HGMMA in its SASS")
+            if dtype == torch.bfloat16 and (st or ld or not hgmma[name]):
+                raise AssertionError(f"{name}: spills {st}/{ld} B, "
+                                     f"{hgmma[name]} HGMMA instructions")
 
 
 # ---------------------------------------------------------------- phase 7 --
@@ -1079,9 +1159,12 @@ def main() -> int:
     out = _build.build()
     log(f"build: {_build.build_seconds:.1f} s into {out.relative_to(ROOT)}")
     for src in _build.SOURCES:
+        if src == "flash_attention":
+            continue
         for line in (out / f"{src}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    flash_build_phase(out)
 
     from repro_torch.configs.pic_bit1 import make_config
 

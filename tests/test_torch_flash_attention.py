@@ -4,11 +4,16 @@ and against ``chunked_attention``, the function it replaces in the model.
 
 Bands: 2e-5 in f32 and 3e-2 with bf16 I/O, as ``tests/test_flash_attention.py``
 holds the Pallas kernel to its oracle; 2e-4 against ``chunked_attention``, as
-``tests/test_models.py`` holds that to its oracle. The CUDA kernel itself
+``tests/test_models.py`` holds that to its oracle. bf16 inputs take the
+tensor-core kernel's arithmetic (scale after the product, exp2, P V by two
+bf16 halves of p), f32 inputs the CUDA-core kernel's. The CUDA kernel itself
 runs only on the card; ``chip_smoke.py`` holds it against this plain version
 there (``tests/test_torch_kernels.py`` checks that its wrapper refuses CPU
 tensors).
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -119,3 +124,102 @@ def test_plain_refuses_what_the_kernel_does_not_take(bad, match):
     q, k, v = (t(a) for a in _qkv(*bad, 8))
     with pytest.raises(ValueError, match=match):
         ops.flash_attention(q, k, v)
+
+
+# ------------------------------------------------- the bf16 kernel's arithmetic
+
+def _bf16_qkv(shape_q, shape_kv, seed):
+    """bf16 inputs for the port and the same values in f32 for the
+    reference."""
+    q, k, v = _qkv(shape_q, shape_kv, seed)
+    tb = tuple(t(a).to(torch.bfloat16) for a in (q, k, v))
+    return tb, tuple(x.float().numpy() for x in tb)
+
+
+@pytest.mark.parametrize("dtype,d", [(dt, d) for dt in port_flash.DTYPES
+                                     for d in port_flash.HEAD_DIMS])
+def test_tile_tables_match_the_kernel(dtype, d):
+    """BLOCK_K is the key tile of the kernel each dtype launches: block_k()
+    of the f32 kernel, MmaTile<D>::BK of the bf16 one."""
+    src = (Path(port_flash.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention.cu").read_text()
+    if dtype == torch.float32:
+        lim, lo_d, hi_d = map(int, re.search(
+            r"constexpr int block_k\(\) \{ return D <= (\d+) \? (\d+) : "
+            r"(\d+); \}", src).groups())
+        bk = lo_d if d <= lim else hi_d
+    else:
+        bk = int(re.search(r"struct MmaTile<%d> \{[^}]*\bBK = (\d+)" % d,
+                           src).group(1))
+    assert port_flash.BLOCK_K[(dtype, d)] == bk
+
+
+def test_split_p_reconstructs_p():
+    """p_hi + p_lo = p within 2^-16 relative, both halves bf16 values, over
+    the exponents a softmax weight takes."""
+    rng = np.random.default_rng(11)
+    p = t(np.exp2(-rng.uniform(0, 100, size=100_000)).astype(np.float32))
+    hi, lo = port_flash.split_p(p)
+    for half in (hi, lo):
+        assert torch.equal(half, half.to(torch.bfloat16).float())
+    rel = ((hi.double() + lo.double() - p.double()).abs() / p.double()).max()
+    assert float(rel) <= 2.0 ** -16
+
+
+@pytest.mark.parametrize("hd,causal,window", [
+    (16, True, 0), (32, True, 0), (64, True, 0), (128, True, 0),
+    (256, True, 0), (64, False, 0), (128, False, 0), (64, True, 64),
+    (256, True, 96)])
+def test_bf16_plain_matches_pallas(hd, causal, window):
+    """The bf16 arithmetic against the Pallas kernel (interpret mode) on the
+    same bf16 inputs, at the band of its bf16-I/O test."""
+    bh, s = 2, 256
+    (q, k, v), _ = _bf16_qkv((bh, s, hd), (bh, s, hd), 12)
+    jq, jk, jv = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                  for x in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, causal=causal, window=window,
+                                  block_q=128, block_k=128)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(n(got.float()), np.asarray(want, np.float32),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("groups,window,hd,causal,sq,skv", [
+    (2, 0, 16, True, 200, 200), (1, 0, 32, False, 200, 200),
+    (7, 0, 64, True, 200, 200), (2, 16, 64, True, 200, 200),
+    (2, 0, 128, True, 200, 200), (1, 24, 256, True, 200, 200),
+    (2, 0, 64, True, 96, 300), (2, 0, 256, False, 70, 150)])
+def test_bf16_plain_matches_chunked_attention(groups, window, hd, causal, sq,
+                                              skv):
+    """The bf16 arithmetic's f32 result (before the output's rounding)
+    against ``chunked_attention`` on the same values in f32, ragged lengths,
+    GQA, at the 2e-4 band."""
+    b, kvh = 1, 2 if groups != 7 else 1
+    h = kvh * groups
+    (q, k, v), (fq, fk, fv) = _bf16_qkv((b, sq, h, hd), (b, skv, kvh, hd),
+                                        13)
+    want = chunked_attention(jnp.asarray(fq), jnp.asarray(fk),
+                             jnp.asarray(fv), causal=causal, window=window,
+                             q_chunk=64, kv_chunk=64)
+    got = port_flash.attention_f32(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    out = port_flash.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    assert torch.equal(out, got.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("hd,causal,window", [(16, True, 0), (64, True, 0),
+                                              (64, False, 0), (128, True, 32),
+                                              (256, True, 0)])
+def test_split_p_matches_an_f32_pv(monkeypatch, hd, causal, window):
+    """P V by the two bf16 halves of p agrees with P V in f32 within 1e-5
+    of max |out|."""
+    (q, k, v), _ = _bf16_qkv((1, 150, 4, hd), (1, 150, 2, hd), 14)
+    split = port_flash.attention_f32(q, k, v, causal=causal, window=window)
+    monkeypatch.setattr(port_flash, "split_p",
+                        lambda p: (p, torch.zeros_like(p)))
+    whole = port_flash.attention_f32(q, k, v, causal=causal, window=window)
+    assert float((split - whole).abs().max()) <= 1e-5 * float(
+        whole.abs().max())
