@@ -9,24 +9,36 @@ Phases (any failure raises and ends the run with a non-zero exit):
 1. the card, the versions, and the build of ``src/repro_torch/csrc/*.cu``;
    for each flash-attention instantiation its registers, spills, shared
    memory and HGMMA (wgmma) instructions in its SASS: a bf16 one that
-   spills or holds no HGMMA fails the run;
+   spills or holds no HGMMA fails the run; for each instance of the two
+   deposit kernels (fused, deposit) its spills and the atomics of its SASS
+   by opcode and memory space, and for a block instance its registers,
+   shared memory and the blocks that fit: an instance that spills, a pair
+   instance that adds other than by float2 reductions in L2, or a block
+   instance with an atomic outside shared memory fails the run;
 2. each kernel against its plain version on the card, at the shapes of the
    paper's §3.3 run (3 species x 16,777,216 slots, 102,401 nodes; the
-   Takizuka-Abe deflection on the within-cell pairs of the 16,777,216
+   deposit also at the births of one ionization step, 2 x 16,777,216 rows;
+   the Takizuka-Abe deflection on the within-cell pairs of the 16,777,216
    electron slots) and at ragged small shapes (every boundary with and
-   without a magnetic field; deflection rows along z and with delta = 0);
-   times by CUDA events beside the least time the card allows;
+   without a magnetic field; the deposit kernels' two forms on either side
+   of the grid size that parts them; deflection rows along z and with
+   delta = 0), each deposit checked to launch in the form its grid gives;
+   times by CUDA events (and the deposit kernels' device time behind a spin
+   kernel) beside the least time the card allows, also at an engine
+   domain's grid (25,601 nodes, the block form) and at 600,001 nodes;
 3. the main paths at full width through the port's entry points, each with
-   the kernels' launch counts set to 0 just before it and read just after:
+   the kernels' launch counts (and the deposit kernels' counts by form)
+   set to 0 just before it and read just after:
    the §3.3 configuration with ``strategy='fused'`` for 5 steps, the same
    with the field solve on (rho carried) for 5 steps, ``strategy='explicit'``
    for 3 steps, the collision menu with ``collide_kernel=True`` (ionization
    off) for 3 steps, and two ``pic_run`` command lines (plain, and with
    ``--collisions``); exact pair accounting or constant counts, the
    collision menu's energy invariants, finite energies and the launches
-   each kernel made per step;
-4. profiles of two §3.3 fused steps and of one collision step: device time
-   by operator and kernel, and the device's busy share of the step;
+   each kernel made per step, every deposit in the form its grid gives;
+4. profiles of two §3.3 fused steps (field off, and field on) and of one
+   collision step: device time by operator and kernel, and the device's
+   busy share of the step;
 5. card against CPU, each on a CPU copy of the same state with the same
    random draws: the small bench configuration, fused with the field solve,
    3 steps; and the small collision configuration, fused with
@@ -154,9 +166,28 @@ def check_equal(name, a, b):
 
 # ---------------------------------------------------------------- phase 2 --
 
+def in_form(wrapper, ng, call):
+    """``call()``, checking that it launched ``wrapper`` once in the form
+    ``deposit_form(ng)`` gives."""
+    from repro_torch.kernels.deposit import deposit_form
+
+    name = f"launches_{deposit_form(ng)}"
+    before = getattr(wrapper, name)
+    out = call()
+    if getattr(wrapper, name) != before + 1:
+        raise AssertionError(f"{wrapper.__name__} at {ng} nodes did not "
+                             f"launch in the {deposit_form(ng)} form")
+    return out
+
+
 def compare_fused(fused, args, kw, length, periodic):
-    """Kernel vs plain on the same inputs; returns the max float error."""
-    got = fused.fused_push_deposit(*args, **kw)
+    """Kernel vs plain on the same inputs (with a deposit, in the form of
+    the grid); returns the max float error."""
+    def call():
+        return fused.fused_push_deposit(*args, **kw)
+
+    got = (in_form(fused.fused_push_deposit, kw["nc"] + 1, call)
+           if kw["deposit"] else call())
     want = fused.fused_push_deposit_plain(*args, **kw)
     torch.cuda.synchronize()
     names = ("x", "v", "alive", "hit_left", "hit_right", "w", "rho")
@@ -201,7 +232,8 @@ def compare_mover(mover, args, kw, length, periodic):
 
 
 def compare_deposit(deposit, x, q, kw):
-    got = deposit.deposit(x, q, **kw)
+    got = in_form(deposit.deposit, kw["nc"] + 1,
+                  lambda: deposit.deposit(x, q, **kw))
     want = deposit.deposit_plain(x, q, **kw)
     torch.cuda.synchronize()
     err = max_err(got, want)
@@ -260,6 +292,73 @@ def main_path_ta_inputs(electrons, cfg):
     return seen["u"], seen["delta"], seen["phi"]
 
 
+def deposit_bound(q, ng):
+    """(bound ms, bound_by, charged elements) of a deposit of ``q``: the
+    bytes it must move are q whole, the 32-byte sectors of x that hold a
+    charged element, and the (ng,) result; 10 flops a charged element."""
+    charged = q != 0
+    pad = charged.new_zeros((-charged.numel()) % 8)
+    sectors = int(torch.cat([charged, pad]).view(-1, 8).any(1).sum())
+    nnz = int(charged.sum())
+    bms, by = bound_ms(4 * q.numel() + 32 * sectors + 4 * ng,
+                       nnz * DEPOSIT_FLOPS)
+    return bms, by, nnz
+
+
+def main_path_birth_inputs(cfg, species, dev):
+    """The rows the carried-rho cycle deposits for the births of one
+    ionization step on ``species`` (``pic.step_fn``): both halves of every
+    candidate pair at the neutral's x, q_e * w * ok then q_i * w * ok,
+    flattened as ``grid.deposit_windowed`` does."""
+    from repro_torch.core import collisions
+
+    ni, ei, ii = cfg.ionization
+    params = collisions.IonizationParams(rate=cfg.ionization_rate,
+                                         vth_electron=cfg.ionization_vth_e)
+    gen = torch.Generator(device=dev).manual_seed(98)
+    *_, births = collisions.ionize(gen, species[ni], species[ei],
+                                   species[ii], cfg.grid, params, cfg.dt)
+    bw = births.w * births.ok
+    x = torch.stack([births.x, births.x]).reshape(-1)
+    q = torch.stack([cfg.species[ei].charge * bw,
+                     cfg.species[ii].charge * bw]).reshape(-1)
+    return x.contiguous(), q.contiguous()
+
+
+# a spin kernel of this many SM cycles (~2.5 ms on an H100) keeps the card
+# busy while the host enqueues the call that ``device_ms`` times
+SLEEP_CYCLES = 5_000_000
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn``: CUDA events around the call,
+    enqueued behind a spin kernel, so the card runs the call's kernels back
+    to back and the host's time between launches falls outside the
+    events. Unlike ``median_ms``, it leaves out the wrapper's host time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def timed(what, fn, bms):
+    """Times ``fn`` by CUDA events around a call (as every kernel row) and
+    by ``device_ms``, beside the bound; returns (ms, device ms)."""
+    ms, dms = median_ms(fn, 20), device_ms(fn)
+    log(f"{what}: {ms:.4f} ms (device {dms:.4f}), bound {bms:.4f} ms, "
+        f"share of bound {bms / ms:.3f} (device {bms / dms:.3f})")
+    return ms, dms
+
+
 def kernel_phase(dev):
     from repro_torch.configs.pic_bit1 import make_config
     from repro_torch.core import pic
@@ -270,33 +369,47 @@ def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(1234)
     results = {}
 
-    # ragged small shapes: every boundary, b on and off, per-species scalars
-    for boundary in ("periodic", "absorb", "open"):
-        for b in ((0.05, -0.1, 0.2), (0.0, 0.0, 0.0)):
-            s, cap, nc, length = 3, 5000, 256, 10.0
-            dx = length / nc
-            x = torch.rand(s, cap, generator=gen, device=dev) * length
-            v = torch.randn(s, cap, 3, generator=gen, device=dev)
-            alive = torch.rand(s, cap, generator=gen, device=dev) < 0.9
-            w = torch.rand(s, cap, generator=gen, device=dev) * alive
-            e = torch.randn(nc + 1, generator=gen, device=dev)
-            qm = torch.tensor([-1.0, 0.5, 0.0], dtype=f32, device=dev)
-            dts = torch.tensor([0.05, 0.1, 0.2], dtype=f32, device=dev)
-            charge = torch.tensor([-1.0, 1.0, 0.0], dtype=f32, device=dev)
-            kw = dict(x0=0.0, dx=dx, nc=nc, length=length, b=b,
-                      boundary=boundary)
-            for dep in (True, False):
-                compare_fused(fused_cycle,
-                              (x, v, w, alive, e, qm * dts, dts, charge),
-                              dict(kw, deposit=dep), length,
-                              boundary == "periodic")
-            compare_mover(mover, (x[0], v[0], alive[0], e),
-                          dict(kw, qm_dt=-0.05, dt=0.05), length,
-                          boundary == "periodic")
+    # ragged small shapes: every boundary, b on and off, per-species
+    # scalars, cap 5000 (no multiple of a block); with a deposit the block
+    # form at 257 nodes, and with b on both forms at the grid sizes on
+    # either side of one block's shared memory (58,112 and 58,113 nodes).
+    # Those take dx = 1 as the paper's grids do: at dx = 10 / 58,111 the
+    # kernels' (x - x0) / dx and PyTorch's (x - x0) * (1 / dx) round apart
+    # by an ulp of s, which moves the gather of a rough E past TOL
+    s, cap = 3, 5000
+    edge = deposit.BLOCK_SMEM // 4
+    rotating = (0.05, -0.1, 0.2)
+    cases = [(bd, b, 256, 10.0) for bd in ("periodic", "absorb", "open")
+             for b in (rotating, (0.0, 0.0, 0.0))]
+    cases += [(bd, rotating, nc, float(nc))
+              for bd in ("periodic", "absorb", "open")
+              for nc in (edge - 1, edge)]
+    for boundary, b, nc, length in cases:
+        dx = length / nc
+        x = torch.rand(s, cap, generator=gen, device=dev) * length
+        v = torch.randn(s, cap, 3, generator=gen, device=dev)
+        alive = torch.rand(s, cap, generator=gen, device=dev) < 0.9
+        w = torch.rand(s, cap, generator=gen, device=dev) * alive
+        e = torch.randn(nc + 1, generator=gen, device=dev)
+        qm = torch.tensor([-1.0, 0.5, 0.0], dtype=f32, device=dev)
+        dts = torch.tensor([0.05, 0.1, 0.2], dtype=f32, device=dev)
+        charge = torch.tensor([-1.0, 1.0, 0.0], dtype=f32, device=dev)
+        kw = dict(x0=0.0, dx=dx, nc=nc, length=length, b=b,
+                  boundary=boundary)
+        fargs = (x, v, w, alive, e, qm * dts, dts, charge)
+        periodic = boundary == "periodic"
+        for dep in (False, True):
+            compare_fused(fused_cycle, fargs, dict(kw, deposit=dep),
+                          length, periodic)
+        compare_mover(mover, (x[0], v[0], alive[0], e),
+                      dict(kw, qm_dt=-0.05, dt=0.05), length, periodic)
     xs = torch.rand(3000, generator=gen, device=dev) * 10.0
-    compare_deposit(deposit, xs,
-                    torch.rand(3000, generator=gen, device=dev),
-                    dict(x0=0.0, dx=10.0 / 512, nc=512))
+    qs = torch.rand(3000, generator=gen, device=dev)
+    qs[::3] = 0.0
+    compare_deposit(deposit, xs, qs, dict(x0=0.0, dx=10.0 / 512, nc=512))
+    for nc in (edge - 1, edge):
+        compare_deposit(deposit, xs * (nc / 10.0), qs,
+                        dict(x0=0.0, dx=1.0, nc=nc))
     m = 5000
     u = torch.randn(m, 3, generator=gen, device=dev)
     u[:40, :2] = 0.0                       # u along +z and -z
@@ -306,14 +419,16 @@ def kernel_phase(dev):
     delta[::7] = 0.0
     phi = torch.rand(m, generator=gen, device=dev) * (2 * torch.pi)
     compare_ta_kick(collide, u, delta, phi)
-    log("kernels: ragged shapes (cap 5000, 3 boundaries x b on/off; 5000 "
-        "deflection rows with u along z and delta = 0) agree with their "
-        "plain versions")
+    log(f"kernels: ragged shapes (cap 5000, 3 boundaries x b on/off; the "
+        f"deposit kernels at 257, 513, {edge} (block) and {edge + 1} (pair) "
+        f"nodes; 5000 deflection rows with u along z and delta = 0) agree "
+        f"with their plain versions")
 
     # the main path's shapes: the §3.3 initial state, a non-zero field
     cfg = make_config(mover_strategy="fused")
     grid = cfg.grid
     state = pic.init_state(cfg, 7, device=dev)
+    bx, bq = main_path_birth_inputs(cfg, state.species, dev)
     st = stack_species(state.species)
     del state
     s, cap = st.x.shape
@@ -336,15 +451,19 @@ def kernel_phase(dev):
     n_slots = s * cap
     nbytes = n_slots * (4 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 1) + 2 * ng * 4
     bms, by = bound_ms(nbytes, n_slots * (PUSH_FLOPS + DEPOSIT_FLOPS))
+    fms, _ = timed(f"fused push + deposit ({s}, {cap}) at {ng} nodes "
+                   f"({deposit.deposit_form(ng)} form)",
+                   lambda: fused_cycle.fused_push_deposit(*fargs, **fkw), bms)
+    nbytes_nd = n_slots * (4 + 12 + 4 + 1 + 4 + 12 + 4 + 1 + 1 + 1) + ng * 4
+    bnd, _ = bound_ms(nbytes_nd, n_slots * PUSH_FLOPS)
+    nd_ms, _ = timed(f"fused without deposit ({s}, {cap})",
+                     lambda: fused_cycle.fused_push_deposit(
+                         *fargs, **dict(kw, deposit=False)), bnd)
     results["fused_push_deposit"] = dict(
         name="fused_push_deposit", route="cuda",
         source="src/repro_torch/csrc/fused_cycle.cu",
         replaces="src/repro/kernels/fused_cycle.py:37",
-        max_abs_err=err,
-        ms=median_ms(lambda: fused_cycle.fused_push_deposit(
-            *fargs, **fkw), 20),
-        ms_no_deposit=median_ms(lambda: fused_cycle.fused_push_deposit(
-            *fargs, **dict(kw, deposit=False)), 20),
+        max_abs_err=err, ms=fms, ms_no_deposit=nd_ms,
         plain_ms=median_ms(lambda: fused_cycle.fused_push_deposit_plain(
             *fargs, **fkw), 5),
         bound_ms=bms, bound_by=by, library_ms=None)
@@ -364,23 +483,40 @@ def kernel_phase(dev):
             *margs, **mkw), 5),
         bound_ms=bms, bound_by=by, library_ms=None)
 
-    # the deposit of the ionization step: electron density over one species
-    x, q = st.x[0], st.w[0] * st.alive[0]
+    # the deposits of the ionization step: the electron density over one
+    # species, and (field on) the births of one step
     dkw = dict(x0=0.0, dx=grid.dx, nc=grid.nc)
-    err = compare_deposit(deposit, x, q, dkw)
-    i, f = mover.cic(x, 0.0, grid.dx, grid.nc)
-    idx = torch.cat([i, i + 1])
-    upd = torch.cat([q * (1.0 - f), q * f])
-    acc = torch.zeros(ng, device=dev)
-    lib_ms = median_ms(lambda: acc.zero_().index_add_(0, idx, upd), 20)
-    bms, by = bound_ms(cap * 8 + ng * 4, cap * DEPOSIT_FLOPS)
+
+    def index_add_ms(x, q):
+        i, f = mover.cic(x, 0.0, grid.dx, grid.nc)
+        idx = torch.cat([i, i + 1])
+        upd = torch.cat([q * (1.0 - f), q * f])
+        acc = torch.zeros(ng, device=dev)
+        return median_ms(lambda: acc.zero_().index_add_(0, idx, upd), 20)
+
+    dep_rows = {}
+    for label, x, q in (("electron density", st.x[0],
+                         st.w[0] * st.alive[0]), ("births", bx, bq)):
+        err = compare_deposit(deposit, x, q, dkw)
+        bms, by, nnz = deposit_bound(q, ng)
+        dms, _ = timed(f"deposit {label} ({q.numel()} elements, {nnz} "
+                       f"charged, {deposit.deposit_form(ng)} form)",
+                       lambda: deposit.deposit(x, q, **dkw), bms)
+        dep_rows[label] = dict(
+            max_abs_err=err, ms=dms,
+            plain_ms=median_ms(lambda: deposit.deposit_plain(x, q, **dkw),
+                               5),
+            bound_ms=bms, bound_by=by, library_ms=index_add_ms(x, q))
+        r = dep_rows[label]
+        log(f"deposit {label}: plain {r['plain_ms']:.4f} ms, index_add_ "
+            f"{r['library_ms']:.4f} ms")
     results["deposit"] = dict(
         name="deposit", route="cuda", source="src/repro_torch/csrc/deposit.cu",
-        replaces="src/repro/kernels/deposit.py:26", max_abs_err=err,
-        ms=median_ms(lambda: deposit.deposit(x, q, **dkw), 20),
-        plain_ms=median_ms(lambda: deposit.deposit_plain(x, q, **dkw),
-                           5),
-        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        replaces="src/repro/kernels/deposit.py:26",
+        **dep_rows["electron density"])
+    del bx, bq
+
+    grid_lines(dev, deposit, fused_cycle, st, cfg, gen)
 
     # the Coulomb deflection of the collision path: the within-cell pairs
     # of the §3.3 electrons, one row per slot
@@ -407,15 +543,82 @@ def kernel_phase(dev):
             f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms{extra}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}")
-    del st, fargs, margs, x, q, idx, upd, electrons, targs
+    del st, fargs, margs, electrons, targs
     torch.cuda.empty_cache()
     return results
+
+
+def grid_lines(dev, deposit, fused_cycle, st, cfg, gen):
+    """For information, held to the same gates: a per-domain grid of the
+    engine at D = 4 (a quarter of the §3.3 slots on 25,600 cells, which fit
+    one block: the block form) and a grid of 600,000 cells (the pair
+    form)."""
+    s, cap = st.x.shape
+    f32 = torch.float32
+    qm = torch.tensor([sc.charge / sc.mass for sc in cfg.species],
+                      dtype=f32, device=dev)
+    dts = torch.tensor([cfg.dt] * s, dtype=f32, device=dev)
+    charge = torch.tensor([sc.charge for sc in cfg.species], dtype=f32,
+                          device=dev)
+    for label, nc, n in (("per-domain grid", 25_600, cap // 4),
+                         ("large grid", 600_000, cap)):
+        scale = nc / cfg.grid.nc
+        x = (st.x[:, :n] * scale).contiguous()
+        v, w = st.v[:, :n].contiguous(), st.w[:, :n].contiguous()
+        alive = st.alive[:, :n].contiguous()
+        e = 0.1 * torch.randn(nc + 1, generator=gen, device=dev)
+        kw = dict(x0=0.0, dx=cfg.grid.dx, nc=nc, length=float(nc),
+                  b=cfg.b_field, boundary=cfg.boundary, deposit=True)
+        fargs = (x, v, w, alive, e, qm * dts, dts, charge)
+        dkw = dict(x0=0.0, dx=cfg.grid.dx, nc=nc)
+        q = w[0] * alive[0]
+        compare_fused(fused_cycle, fargs, kw, float(nc), True)
+        compare_deposit(deposit, x[0], q, dkw)
+        form = deposit.deposit_form(nc + 1)
+        nbytes = s * n * 44 + 2 * (nc + 1) * 4
+        fb, _ = bound_ms(nbytes, s * n * (PUSH_FLOPS + DEPOSIT_FLOPS))
+        timed(f"fused push + deposit, {label} ({s}, {n}) at {nc + 1} nodes "
+              f"({form} form)",
+              lambda: fused_cycle.fused_push_deposit(*fargs, **kw), fb)
+        db, _, _ = deposit_bound(q, nc + 1)
+        timed(f"deposit, {label} ({n} elements) at {nc + 1} nodes ({form} "
+              f"form)", lambda: deposit.deposit(x[0], q, **dkw), db)
+        del x, v, w, alive, fargs, q
 
 
 # ---------------------------------------------------------------- phase 3 --
 
 def launches(counters):
-    return {name: fn.launches for name, fn in counters.items()}
+    """Each kernel's launch count and, for the two deposit kernels, its
+    count by form ("fused_push_deposit/block", ...)."""
+    out = {}
+    for name, fn in counters.items():
+        out[name] = fn.launches
+        for attr, n in sorted(vars(fn).items()):
+            if attr.startswith("launches_"):
+                out[f"{name}/{attr.removeprefix('launches_')}"] = n
+    return out
+
+
+def reset_launches(counters):
+    for fn in counters.values():
+        for attr in list(vars(fn)):
+            if attr.startswith("launches"):
+                setattr(fn, attr, 0)
+
+
+def expected(form, fused=0, fused_dep=0, mover=0, deposit=0, ta=0):
+    """Launches a step: totals, and the deposit kernels' launches by form,
+    all of them in ``form`` (fused_dep of the fused kernel's launches carry
+    a deposit)."""
+    from repro_torch.kernels.deposit import FORMS
+
+    out = {"fused_push_deposit": fused, "mover_push": mover,
+           "deposit": deposit, "ta_kick": ta}
+    for name, n in (("fused_push_deposit", fused_dep), ("deposit", deposit)):
+        for f in FORMS:
+            out[f"{name}/{f}"] = n if f == form else 0
+    return out
 
 
 def ke64(cfg, species):
@@ -443,8 +646,7 @@ def drive(cfg, steps, label, counters, per_step, dev, seed=0):
     ionized = 0
     colls = dict.fromkeys(COLL_KEYS, 0) if cfg.collisions else {}
     times = []
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     for k in range(steps):
         before = launches(counters)
         torch.cuda.synchronize()
@@ -519,8 +721,7 @@ def collision_config(strategy="fused"):
 def run_launcher(argv, counters, label):
     from repro_torch.launch import pic_run
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches(counters)
     pic_run.main(argv)
     counts = launches(counters)
     log(f"main path {label}: launches {counts}")
@@ -536,23 +737,22 @@ def main_path_phase(dev):
                 "ta_kick": collide.ta_kick}
     ms, paths = {}, {}
     cfg = make_config(mover_strategy="fused")
+    # the form of the §3.3 grid; every deposit of every path below must
+    # launch in it
+    form = deposit.deposit_form(cfg.nc + 1)
     ms["fused"], paths["fused"] = drive(
         cfg, 5, "fused (field solve off)", counters,
-        {"fused_push_deposit": 1, "mover_push": 0, "deposit": 1,
-         "ta_kick": 0}, dev)
+        expected(form, fused=1, deposit=1), dev)
     ms["fused_field"], paths["fused_field"] = drive(
         dataclasses.replace(cfg, field_solve=True), 5,
         "fused + field solve (rho carried)", counters,
-        {"fused_push_deposit": 1, "mover_push": 0, "deposit": 2,
-         "ta_kick": 0}, dev)
+        expected(form, fused=1, fused_dep=1, deposit=2), dev)
     ms["explicit"], paths["explicit"] = drive(
         make_config(mover_strategy="explicit"), 3, "explicit",
-        counters, {"fused_push_deposit": 0, "mover_push": 3, "deposit": 1,
-                   "ta_kick": 0}, dev)
+        counters, expected(form, mover=3, deposit=1), dev)
     ms["collisions"], paths["collisions"] = drive(
         collision_config(), 3, "collisions (menu + T-A kernel, field off)",
-        counters, {"fused_push_deposit": 1, "mover_push": 0, "deposit": 0,
-                   "ta_kick": 1}, dev)
+        counters, expected(form, fused=1, ta=1), dev)
     paths["pic_run"] = run_launcher(
         ["--nc", "102400", "--particles", "10485760", "--strategy",
          "fused", "--steps", "3"], counters, "pic_run")
@@ -569,11 +769,15 @@ def main_path_phase(dev):
         raise AssertionError("pic_run --collisions: unexpected launches "
                              f"{paths['pic_run_collisions']}")
     counts = {name: sum(p[name] for p in paths.values())
-              for name in counters}
+              for name in paths["fused"]}
     for name, c in counts.items():
-        if c <= 0:
+        main = "/" not in name or name.endswith("/" + form)
+        if main and c <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
                                  f"paths")
+        if not main and c:
+            raise AssertionError(f"{name}: {c} launches on the main paths, "
+                                 f"whose grid takes the {form} form")
     log(f"main path launches, summed over the paths: {counts}")
     return counts, ms
 
@@ -638,9 +842,14 @@ def card_vs_cpu_phase(dev):
 
     from repro_torch.configs.pic_bit1 import make_bench_config
     from repro_torch.core import pic
+    from repro_torch.kernels import deposit, fused_cycle
 
     cfg = dataclasses.replace(make_bench_config(strategy="fused"),
                               field_solve=True)
+    # the bench grid fits one block: both deposit kernels in the block form
+    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
+                "deposit": deposit.deposit}
+    reset_launches(counters)
     cpu = pic.init_state(cfg, 11, device="cpu")
     arrays = [{"x": b.x.numpy(), "v": b.v.numpy(), "w": b.w.numpy(),
                "alive": b.alive.numpy()} for b in cpu.species]
@@ -676,6 +885,13 @@ def card_vs_cpu_phase(dev):
         log(f"card vs CPU step {k}: counts equal, ionized "
             f"{int(dg['n_ionized'])}, max |dx| {ex:.3g}, max |dv|/(1+max|v|)"
             f" {ev:.3g}, max |drho| {er:.3g}")
+    counts = launches(counters)
+    form = deposit.deposit_form(cfg.nc + 1)
+    if not all(0 < counts[f"{k}/{form}"] == counts[k] for k in counters):
+        raise AssertionError(f"card vs CPU at {cfg.nc + 1} nodes: launches "
+                             f"{counts}, expected every deposit in the "
+                             f"{form} form")
+    log(f"card vs CPU at {cfg.nc + 1} nodes ({form} form): launches {counts}")
 
 
 def collision_card_vs_cpu_phase(dev):
@@ -923,6 +1139,133 @@ def flash_build_phase(build_dir):
                                      f"{hgmma[name]} HGMMA instructions")
 
 
+# the kernels of csrc/fused_cycle.cu and csrc/deposit.cu, by their
+# mangled names: the name, then the template arguments
+PIC_KERNEL = re.compile(r"\d+(fused_block_kernel|deposit_block_kernel|"
+                        r"fused_push_deposit_kernel|deposit_kernel|"
+                        r"sum_rows_kernel|pair_finish_kernel)(I?)")
+# an atomic or reduction instruction of the SASS, after its address and
+# predicate; REDUX (a warp reduction) is not one
+SASS_ATOMIC = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"((?:ATOM|RED)(?!UX)[A-Z]*(?:\.[A-Za-z0-9_]+)*)")
+
+
+def pic_kernel_name(mangled: str) -> str | None:
+    """``fused_block_kernel<0, false>`` from its mangled name: int and bool
+    template arguments, and type names (length-prefixed, or f)."""
+    m = PIC_KERNEL.search(mangled)
+    if not m:
+        return None
+    if not m.group(2):
+        return m.group(1)
+    rest, args = mangled[m.end():], []
+    while rest and rest[0] != "E":
+        if rest.startswith("Li"):
+            value, rest = rest[2:].split("E", 1)
+            args.append(value)
+        elif rest.startswith("Lb"):
+            args.append("true" if rest[2] == "1" else "false")
+            rest = rest[4:]
+        elif rest[0].isdigit():
+            digits = re.match(r"\d+", rest).group()
+            end = len(digits) + int(digits)
+            args.append(rest[len(digits):end])
+            rest = rest[end:]
+        else:
+            args.append({"f": "float"}.get(rest[0], rest[0]))
+            rest = rest[1:]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def atomic_space(opcode: str) -> str:
+    """The memory space of a SASS atomic: ATOMS shared, ATOMG/REDG global,
+    ATOM/RED generic (the address picks the window)."""
+    base = opcode.split(".")[0]
+    return {"ATOMS": "shared", "ATOMG": "global", "REDG": "global",
+            "ATOM": "generic", "RED": "generic"}.get(base, base)
+
+
+def check_pic_atomics(name, atomics, by_space):
+    """The gates on one instance's atomics: a deposit in L2 adds by float2
+    reductions only, a block instance only in shared memory, and a launch
+    without a deposit adds nothing."""
+    pair = (name == "deposit_kernel"
+            or re.fullmatch(r"fused_push_deposit_kernel<\d, \w+, true>", name))
+    if pair and (set(by_space) != {"global"} or any(
+            not re.search(r"F32x2", op) for op in atomics)):
+        raise AssertionError(f"{name}: adds {atomics}, not float2 "
+                             f"reductions in L2")
+    if "block_kernel" in name and set(by_space) != {"shared"}:
+        raise AssertionError(f"{name}: atomics {atomics} outside shared "
+                             f"memory")
+    if re.fullmatch(r"fused_push_deposit_kernel<\d, \w+, false>", name) and (
+            atomics):
+        raise AssertionError(f"{name}: atomics {atomics} without a deposit")
+
+
+def pic_build_phase(build_dir):
+    """What the compiler made of each instance of the two deposit kernels
+    (csrc/fused_cycle.cu, csrc/deposit.cu): spills, every atomic
+    instruction of its SASS by opcode and memory space, and for a block
+    instance its registers, shared memory, and the blocks that fit at an
+    engine domain's grid (25,601 nodes) and at the largest block grid. Fails
+    if an instance spills or breaks ``check_pic_atomics``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import deposit as dep
+
+    grids = (25_601, dep.BLOCK_SMEM // 4)
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    for src in ("fused_cycle", "deposit"):
+        spills, fn = {}, None
+        for line in (build_dir / f"{src}.log").read_text().splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = pic_kernel_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                spills[fn] = (int(m.group(1)), int(m.group(2)))
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build_dir / f"lib{src}.so")],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        atomics, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = pic_kernel_name(m.group(1)) or m.group(1)
+                atomics[fn] = {}
+                continue
+            m = SASS_ATOMIC.search(line)
+            if m and fn:
+                atomics[fn][m.group(1)] = atomics[fn].get(m.group(1), 0) + 1
+        for name in sorted(atomics):
+            st, ld = spills.get(name, (0, 0))
+            by_space = {}
+            for op, c in atomics[name].items():
+                by_space[atomic_space(op)] = by_space.get(
+                    atomic_space(op), 0) + c
+            line = (f"  {name}: spill stores {st} B loads {ld} B; atomics "
+                    f"{by_space or 'none'} {atomics[name]}")
+            check_pic_atomics(name, atomics[name], by_space)
+            if "block_kernel" in name:
+                key = tuple(1 if a == "true" else 0 if a == "false"
+                            else int(a) for a in re.findall(
+                                r"true|false|\d+", name.partition("<")[2]))
+                for ng in grids:
+                    a = dep.block_info(src, key, ng)
+                    line += (f"; {a['registers']} registers, local "
+                             f"{a['local_bytes']} B, shared "
+                             f"{a['static_smem']} B static + {4 * ng} B "
+                             f"dynamic: {a['max_blocks']} blocks fit")
+                    if a["local_bytes"]:
+                        raise AssertionError(
+                            f"{name}: local {a['local_bytes']} B")
+            log(line)
+            if st or ld:
+                raise AssertionError(f"{name} spills {st}/{ld} B")
+
+
 # ---------------------------------------------------------------- phase 7 --
 
 def rel_err(got, want) -> float:
@@ -1158,13 +1501,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     out = _build.build()
     log(f"build: {_build.build_seconds:.1f} s into {out.relative_to(ROOT)}")
-    for src in _build.SOURCES:
-        if src == "flash_attention":
-            continue
+    for src in ("mover", "collide"):
         for line in (out / f"{src}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
     flash_build_phase(out)
+    pic_build_phase(out)
 
     from repro_torch.configs.pic_bit1 import make_config
 
@@ -1172,6 +1514,9 @@ def main() -> int:
     counts, ms = main_path_phase(dev)
     profile_phase(dev, make_config(mover_strategy="fused"), "fused §3.3",
                   ms["fused"], 2)
+    profile_phase(dev, dataclasses.replace(make_config(mover_strategy="fused"),
+                                           field_solve=True),
+                  "fused + field §3.3", ms["fused_field"], 2)
     profile_phase(dev, collision_config(), "collision §3.3", ms["collisions"],
                   1)
     card_vs_cpu_phase(dev)

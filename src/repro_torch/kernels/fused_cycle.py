@@ -10,9 +10,14 @@ arrays: it computes ``core.mover.push_stacked`` and its deposit in one pass,
 and ``push_fused`` is its S = 1 case.
 
 Bound on the H100: bytes, 44 B a slot (read x, v, w, alive; write x, v, w,
-alive and both masks). The deposit is two global atomicAdds per charged slot
-into an (nc+1,) accumulator in L2; neither E nor the accumulator (400 KB
-each at the paper's size) fits in a block's shared memory.
+alive and both masks). With a deposit, the kernel runs in the form
+``deposit.deposit_form`` gives: on a grid that fits one block's shared
+memory, persistent blocks that hold the accumulator on chip and flush it
+once each; above that (the paper's 102,401 nodes), one thread a slot and
+one float2 reduction in L2 a charged slot into node pairs (half the
+atomics of two float adds), then a finishing pass. ``kernels/deposit.py``
+gives the measurements behind the rule. Without a deposit, one thread a
+slot.
 
 Both versions return the deposit in raw (times dx) units; ``ops`` divides by
 dx and adds a carried rho outside, as the reference's ``ops.py`` does.
@@ -25,16 +30,17 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import deposit as _deposit
 from repro_torch.kernels.deposit import deposit_plain
 from repro_torch.kernels.mover import (BOUNDARY_CODES, check_boundary,
                                       clamp_hi, push_plain)
 
 _P = ctypes.c_void_p
-_ARGTYPES = ([_P] * 15
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                ctypes.c_int, _P])
+_I = ctypes.c_int
+_F = ctypes.c_float
+_GRID = [ctypes.c_longlong, _I, _F, _F, _I, _F, _F, _F, _F, _F, _I]
+_ARGTYPES = [_P] * 16 + _GRID + [_P]
+_BLOCK_ARGTYPES = [_P] * 16 + _GRID + [_I, _P]
 
 
 def fused_push_deposit_plain(x, v, w, alive, e, qm_dt, dt, charge, *, x0,
@@ -57,9 +63,12 @@ def fused_push_deposit_plain(x, v, w, alive, e, qm_dt, dt, charge, *, x0,
 def fused_push_deposit(x, v, w, alive, e, qm_dt, dt, charge, *, x0, dx, nc,
                        length, b, boundary, deposit):
     """CUDA kernel: same arguments and results as
-    ``fused_push_deposit_plain``. Launches on the current stream and
-    allocates fresh outputs (the input w must survive for the wall-power
-    diagnostic); raises on a refused launch."""
+    ``fused_push_deposit_plain``; with ``deposit``, in the form
+    ``deposit.deposit_form(nc + 1)`` gives. Launches on the current stream
+    and allocates fresh outputs (the input w must survive for the
+    wall-power diagnostic); raises on a refused launch. Counts its launches
+    in ``launches`` and, with a deposit, by form in ``launches_block`` and
+    ``launches_pair``."""
     _build.require_cuda(x, "fused_push_deposit")
     check_boundary(boundary)
     if x.dim() != 2:
@@ -76,20 +85,36 @@ def fused_push_deposit(x, v, w, alive, e, qm_dt, dt, charge, *, x0, dx, nc,
         _build.require(t, name, f32, (s,), dev)
     xo, vo, wo = torch.empty_like(x), torch.empty_like(v), torch.empty_like(w)
     ao, hl, hr = (torch.empty_like(alive) for _ in range(3))
-    rho = torch.zeros(nc + 1, dtype=f32, device=dev) if deposit else None
     if s * cap == 0:
+        rho = torch.zeros(nc + 1, dtype=f32, device=dev) if deposit else None
         return xo, vo, ao, hl, hr, wo, rho
-    fn = _build.function("fused_cycle", "fused_push_deposit", _ARGTYPES)
-    err = fn(x.data_ptr(), v.data_ptr(), w.data_ptr(), alive.data_ptr(),
-             e.data_ptr(), qm_dt.data_ptr(), dt.data_ptr(), charge.data_ptr(),
-             xo.data_ptr(), vo.data_ptr(), wo.data_ptr(), ao.data_ptr(),
-             hl.data_ptr(), hr.data_ptr(),
-             rho.data_ptr() if deposit else None, cap, s, x0, dx, nc, length,
-             clamp_hi(length), *(float(c) for c in b),
-             BOUNDARY_CODES[boundary], int(deposit), _build.stream_of(x))
-    fused_push_deposit.launches += 1
-    _build.check_launch(err, "fused_push_deposit")
+    ng = nc + 1
+    form = _deposit.deposit_form(ng) if deposit else None
+    code = BOUNDARY_CODES[boundary]
+    bf = tuple(float(c) for c in b)
+    ptrs = (x.data_ptr(), v.data_ptr(), w.data_ptr(), alive.data_ptr(),
+            e.data_ptr(), qm_dt.data_ptr(), dt.data_ptr(), charge.data_ptr(),
+            xo.data_ptr(), vo.data_ptr(), wo.data_ptr(), ao.data_ptr(),
+            hl.data_ptr(), hr.data_ptr())
+    grid = (cap, s, x0, dx, nc, length, clamp_hi(length), *bf, code)
+    stream = _build.stream_of(x)
+    rho = None
+    if form == "block":
+        nb = _deposit.n_blocks("fused_cycle", (code, int(any(bf))), ng)
+        rho, rows = _deposit.accumulators(form, nb, ng, dev)
+        fn = _build.function("fused_cycle", "fused_push_deposit_block",
+                             _BLOCK_ARGTYPES)
+        err = fn(*ptrs, rows.data_ptr(), rho.data_ptr(), *grid, nb, stream)
+    else:
+        pair = None
+        if form == "pair":
+            rho, pair = _deposit.accumulators(form, 0, ng, dev)
+        fn = _build.function("fused_cycle", "fused_push_deposit", _ARGTYPES)
+        err = fn(*ptrs, rho.data_ptr() if rho is not None else None,
+                 pair.data_ptr() if pair is not None else None, *grid, stream)
+    _deposit.count_launch(fused_push_deposit, form)
+    _build.check_launch(err, f"fused_push_deposit ({form or 'no deposit'})")
     return xo, vo, ao, hl, hr, wo, rho
 
 
-fused_push_deposit.launches = 0
+_deposit.reset_launches(fused_push_deposit)
