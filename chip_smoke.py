@@ -66,7 +66,26 @@ Phases (any failure raises and ends the run with a non-zero exit):
    in f32, on the same weights and a 128-token prompt: prefill and decode
    logits within 1e-4 of max |logits|, greedy tokens equal wherever the
    top-2 gap exceeds that band;
-9. one line of JSON with every kernel's numbers, then the result line.
+9. the multi-domain engine (run after phase 5), with the kernels' launch
+   counts set to 0 before each of its paths and read after: the §3.3
+   configuration with the field solve on (rho carried) and ionization at
+   (domains, async_n) = (1, 1), (4, 1), (4, 4), 5 steps each, with exact
+   pair accounting, every overflow counter 0, charge equal to the counts,
+   the launches of every step pinned by kernel and deposit form
+   (``engine_launches``), host ms/step, a 2-step profile (device busy,
+   and the time kernels on different streams overlap, read from the
+   trace's stream ids after a calibration with two spin kernels) and
+   ``perf.phase_breakdown``; async_n 1 against 4 at D = 4 (ionization
+   off: counts and charge equal, KE within 1e-5); the collision menu with
+   ``collide_kernel=True`` at D = 4, async_n 4 (``ta_kick`` once a queue
+   a domain); the queue push and the small deposits timed at D = 4's
+   shapes; card against CPU on the bench configuration at D = 4, async_n
+   2 with the same draws (counts, masks, rings and pending exact, x
+   within 1e-5 of the slab, v 1e-4 of max|v|, rho 1e-3); and ``pic_run
+   --domains 4 --async-n 4 --field-solve --phases`` at full size, its
+   lines in the reference launcher's form;
+10. one line of JSON with every kernel's numbers (launches summed over
+   the main paths and the engine's), then the result line.
 
 Exits non-zero and prints no result without a CUDA device, or when the
 port's sources are not beside this script.
@@ -373,15 +392,16 @@ def kernel_phase(dev):
     # scalars, cap 5000 (no multiple of a block); with a deposit the block
     # form at 257 nodes, and with b on both forms at the grid sizes on
     # either side of one block's shared memory (58,112 and 58,113 nodes).
-    # Those take dx = 1 as the paper's grids do: at dx = 10 / 58,111 the
-    # kernels' (x - x0) / dx and PyTorch's (x - x0) * (1 / dx) round apart
-    # by an ulp of s, which moves the gather of a rough E past TOL
+    # The 58,112-node cases take dx = 10 / 58,111, no power of two: every
+    # path computes the cell coordinate as (x - x0) * inv_dx with the same
+    # float32 reciprocal (the rounding jitted JAX gives the reference's
+    # division), so kernel and plain version still agree there
     s, cap = 3, 5000
     edge = deposit.BLOCK_SMEM // 4
     rotating = (0.05, -0.1, 0.2)
     cases = [(bd, b, 256, 10.0) for bd in ("periodic", "absorb", "open")
              for b in (rotating, (0.0, 0.0, 0.0))]
-    cases += [(bd, rotating, nc, float(nc))
+    cases += [(bd, rotating, nc, 10.0 if nc == edge - 1 else float(nc))
               for bd in ("periodic", "absorb", "open")
               for nc in (edge - 1, edge)]
     for boundary, b, nc, length in cases:
@@ -407,9 +427,10 @@ def kernel_phase(dev):
     qs = torch.rand(3000, generator=gen, device=dev)
     qs[::3] = 0.0
     compare_deposit(deposit, xs, qs, dict(x0=0.0, dx=10.0 / 512, nc=512))
-    for nc in (edge - 1, edge):
-        compare_deposit(deposit, xs * (nc / 10.0), qs,
-                        dict(x0=0.0, dx=1.0, nc=nc))
+    compare_deposit(deposit, xs, qs, dict(x0=0.0, dx=10.0 / (edge - 1),
+                                          nc=edge - 1))
+    compare_deposit(deposit, xs * (edge / 10.0), qs,
+                    dict(x0=0.0, dx=1.0, nc=edge))
     m = 5000
     u = torch.randn(m, 3, generator=gen, device=dev)
     u[:40, :2] = 0.0                       # u along +z and -z
@@ -420,9 +441,9 @@ def kernel_phase(dev):
     phi = torch.rand(m, generator=gen, device=dev) * (2 * torch.pi)
     compare_ta_kick(collide, u, delta, phi)
     log(f"kernels: ragged shapes (cap 5000, 3 boundaries x b on/off; the "
-        f"deposit kernels at 257, 513, {edge} (block) and {edge + 1} (pair) "
-        f"nodes; 5000 deflection rows with u along z and delta = 0) agree "
-        f"with their plain versions")
+        f"deposit kernels at 257, 513, {edge} (block, dx = 10 / {edge - 1}) "
+        f"and {edge + 1} (pair) nodes; 5000 deflection rows with u along z "
+        f"and delta = 0) agree with their plain versions")
 
     # the main path's shapes: the §3.3 initial state, a non-zero field
     cfg = make_config(mover_strategy="fused")
@@ -814,9 +835,12 @@ def report_profile(prof, label, reps, host_ms):
     from torch.autograd import DeviceType
 
     # device kernels carry the device time; the aten ops that launched
-    # them carry the same time again as their self device time
+    # them carry the same time again as their self device time, and so do
+    # the engine's record_function ranges (engine/..., halo/...)
     kernels, ops = [], []
     for e in prof.key_averages():
+        if e.key.startswith(("engine/", "halo/")):
+            continue
         if e.self_device_time_total > 0:
             row = (e.self_device_time_total / (1e3 * reps),
                    e.count / reps, e.key)
@@ -1266,6 +1290,491 @@ def pic_build_phase(build_dir):
                 raise AssertionError(f"{name} spills {st}/{ld} B")
 
 
+# ---------------------------------------------------------------- phase 9 --
+
+# the engine phase's runs at the §3.3 configuration: (domains, async_n)
+ENGINE_RUNS = ((1, 1), (4, 1), (4, 4))
+# births a domain a step: the §3.3 step births about 21,700 pairs, so
+# 8,192 would overflow at D = 1; 32,768 divides by every async_n here
+ENGINE_MAX_BIRTHS = 32_768
+ENGINE_MAX_MIGRATION = 8_192
+ENGINE_STEPS = 5
+
+
+def engine_config(d, n_q, cfg=None, **kw):
+    """EngineConfig of the §3.3 configuration (field solve on, rho carried,
+    ionization on) unless ``cfg`` is given."""
+    from repro_torch.configs.pic_bit1 import make_config, make_engine_config
+
+    if cfg is None:
+        cfg = dataclasses.replace(make_config(mover_strategy="fused"),
+                                  field_solve=True)
+    return make_engine_config(cfg, domains=d, async_n=n_q,
+                              max_migration=ENGINE_MAX_MIGRATION,
+                              max_births=ENGINE_MAX_BIRTHS, **kw)
+
+
+def engine_launches(ecfg):
+    """Launches a step of the engine, from its design: the fused kernel
+    once a queue a domain (with a deposit when rho is carried), the
+    deposit kernel for the electron density once a domain (ionization
+    on), for the leavers once a queue a domain and for the merged rows
+    once a domain (rho carried), and the deflection kernel once a queue a
+    domain a Coulomb entry (with ``collide_kernel``); every deposit in the
+    form of a domain's grid."""
+    from repro_torch.distributed import engine
+    from repro_torch.kernels.deposit import deposit_form
+
+    cfg = ecfg.pic
+    d, n_q = ecfg.domains, ecfg.async_n
+    carried = engine._carries_rho(ecfg)
+    queues = d * n_q
+    dep = ((d if cfg.ionization is not None else 0)
+           + (queues + d if carried else 0))
+    coulomb = sum(cc.kind == "coulomb" for cc in cfg.collisions)
+    return expected(deposit_form(ecfg.local_nc() + 1), fused=queues,
+                    fused_dep=queues if carried else 0, deposit=dep,
+                    ta=queues * coulomb if cfg.collide_kernel else 0)
+
+
+def resident_counts(state):
+    """Per-species resident + pending rows of an engine state."""
+    out = []
+    for i, b in enumerate(state.species):
+        n = int(b.alive.sum())
+        for g, idxs in enumerate(state.group_species):
+            if i in idxs and state.pending:
+                n += int(state.pending[g].alive[:, idxs.index(i)].sum())
+        out.append(n)
+    return out
+
+
+def drive_engine(ecfg, steps, label, counters, dev, seed=0):
+    """``steps`` engine steps with the launches of each pinned to
+    ``engine_launches``; exact pair accounting (ionization) or constant
+    counts, every overflow counter 0, integer charge totals equal to the
+    counts (weight 1), finite energies, the collision counters > 0 where
+    the menu is on. Returns (state, steady ms/step, launches, last diag,
+    sums of the event counters)."""
+    from repro_torch.distributed import engine
+
+    cfg = ecfg.pic
+    per_step = engine_launches(ecfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = engine.init_engine_state(ecfg, seed, device=dev)
+    step = engine.make_engine_step(ecfg)
+    n0 = resident_counts(state)
+    sums: dict = {}
+    times = []
+    reset_launches(counters)
+    diag = {}
+    for k in range(steps):
+        before = launches(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, diag = step(state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        after = launches(counters)
+        delta = {n: after[n] - before[n] for n in after}
+        if delta != per_step:
+            raise AssertionError(f"{label} step {k}: launches {delta}, "
+                                 f"expected {per_step}")
+        for key, v in diag.items():
+            tail = key.rsplit("/", 1)[-1]
+            if tail in ("n_ionized", "birth_overflow", "migration_overflow",
+                        "merge_dropped", "migrated_left", "migrated_right",
+                        "coll_elastic", "coll_cx", "coll_coulomb"):
+                sums[key] = sums.get(key, 0) + int(v)
+                if tail in ("birth_overflow", "migration_overflow",
+                            "merge_dropped") and int(v):
+                    raise AssertionError(f"{label} step {k}: {key} = "
+                                         f"{int(v)}")
+        for key in COLL_KEYS if cfg.collisions else ():
+            if int(diag[key]) <= 0:
+                raise AssertionError(f"{label} step {k}: {key} = 0")
+        for sc in cfg.species:
+            if not bool(torch.isfinite(diag[f"{sc.name}/ke"])):
+                raise AssertionError(f"{label}: non-finite {sc.name}/ke")
+            if float(diag[f"{sc.name}/charge"]) != (
+                    sc.charge * int(diag[f"{sc.name}/count"])):
+                raise AssertionError(f"{label}: {sc.name} charge "
+                                     f"{float(diag[f'{sc.name}/charge'])} "
+                                     f"is not charge x count")
+    counts = [int(diag[f"{sc.name}/count"]) for sc in cfg.species]
+    if counts != resident_counts(state):
+        raise AssertionError(f"{label}: diag counts {counts} != resident + "
+                             f"pending {resident_counts(state)}")
+    ionized = sums.get("n_ionized", 0)
+    if cfg.ionization is not None:
+        ne, ni, nn = counts
+        if not (ne - n0[0] == ni - n0[1] == ionized == n0[2] - nn
+                and ionized > 0):
+            raise AssertionError(
+                f"{label}: pair accounting broken: e {n0[0]}->{ne}, D+ "
+                f"{n0[1]}->{ni}, D {n0[2]}->{nn}, ionized {ionized}")
+    elif counts != n0:
+        raise AssertionError(f"{label}: counts moved {n0} -> {counts}")
+    steady = statistics.median(times[1:]) if steps > 1 else times[0]
+    log(f"engine {label}: {steps} steps, ms/step "
+        f"{[round(t, 3) for t in times]} (median after the first "
+        f"{steady:.3f}), populations {counts}, sums {sums}; launches a step "
+        f"{per_step}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return state, steady, launches(counters), diag, sums
+
+
+def trace_intervals(path):
+    """(start µs, end µs, stream) of every kernel, copy and memset of a
+    chrome trace written by torch.profiler."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
+                                                  "gpu_memset"):
+            stream = e.get("args", {}).get("stream", e.get("tid"))
+            out.append((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                        stream))
+    return out
+
+
+def busy_and_overlap(intervals):
+    """(busy µs: the union of the intervals, overlap µs: the time two or
+    more streams run at once, the streams seen)."""
+    edges = sorted([(s, 1, st) for s, _, st in intervals]
+                   + [(e, -1, st) for _, e, st in intervals],
+                   key=lambda t: (t[0], t[1]))
+    active: dict = {}
+    busy = overlap = 0.0
+    last = None
+    for t, kind, st in edges:
+        if last is not None:
+            live = [s for s, c in active.items() if c > 0]
+            if live:
+                busy += t - last
+            if len(live) > 1:
+                overlap += t - last
+        active[st] = active.get(st, 0) + kind
+        last = t
+    return busy, overlap, len({st for _, _, st in intervals})
+
+
+def trace_overlap(fn, label):
+    """(busy, overlap, streams) in µs of the device events a
+    torch.profiler trace records around ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = ROOT / "build" / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"trace_{label}.json"
+    prof.export_chrome_trace(str(path))
+    iv = trace_intervals(path)
+    path.unlink()
+    return prof, iv
+
+
+def trace_calibration():
+    """Whether the profiler's trace shows concurrent kernels as such: two
+    spin kernels on two streams, each ~2.5 ms, run at once on the card.
+    Returns the overlap the trace shows, in ms."""
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def two():
+        with torch.cuda.stream(a):
+            torch.cuda._sleep(SLEEP_CYCLES)
+        with torch.cuda.stream(b):
+            torch.cuda._sleep(SLEEP_CYCLES)
+
+    two()
+    torch.cuda.synchronize()
+    _, iv = trace_overlap(two, "calibration")
+    busy, overlap, n = busy_and_overlap(iv)
+    log(f"trace calibration: two spin kernels on two streams: busy "
+        f"{busy / 1e3:.3f} ms, overlap {overlap / 1e3:.3f} ms in the trace "
+        f"({len(iv)} events on {n} streams)")
+    return overlap / 1e3
+
+
+def profile_engine(ecfg, state, label, host_ms, steps=2):
+    """Device busy of an engine step and the time kernels on different
+    streams overlap, from a torch.profiler trace of ``steps`` steps; device
+    time by kernel beside ``host_ms``, the unprofiled step. Returns (busy
+    ms, overlap ms) a step."""
+    from repro_torch.distributed import engine
+
+    step = engine.make_engine_step(ecfg)
+    state, _ = step(state)
+    torch.cuda.synchronize()
+    box = [state]
+
+    def run():
+        for _ in range(steps):
+            box[0], _ = step(box[0])
+
+    prof, iv = trace_overlap(run, f"engine_{label}")
+    if not iv:
+        log(f"profile of an engine step {label}: no device events in the "
+            f"trace (not measured)")
+        return None, None
+    busy, overlap, n_streams = busy_and_overlap(iv)
+    kernel_sum = sum(e - s for s, e, _ in iv)
+    log(f"profile of an engine step {label}: device busy "
+        f"{busy / 1e3 / steps:.3f} ms a step (kernels, copies and memsets "
+        f"{kernel_sum / 1e3 / steps:.3f} ms summed over {n_streams} "
+        f"streams; {overlap / 1e3 / steps:.3f} ms with two or more streams "
+        f"running), {len(iv) / steps:.0f} device events a step")
+    report_profile(prof, f"an engine step {label}", steps, host_ms)
+    return busy / 1e3 / steps, overlap / 1e3 / steps
+
+
+def engine_kernel_times(dev):
+    """Device ms of the kernels at the engine's D = 4 shapes, beside their
+    bounds: the queue push (fused + deposit) at async_n 1 and 4, and the
+    small deposits of the leavers (a queue) and of the merged rows (a
+    domain), with the charged rows an engine step gives them."""
+    from repro_torch.configs.pic_bit1 import make_config
+    from repro_torch.kernels import deposit, fused_cycle
+
+    cfg = make_config(mover_strategy="fused")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    f32 = torch.float32
+    s, cap_l, nc = 3, cfg.species[0].capacity // 4, cfg.nc // 4
+    ng = nc + 1
+    length = float(nc)
+    qm = torch.tensor([sc.charge / sc.mass for sc in cfg.species],
+                      dtype=f32, device=dev)
+    dts = torch.tensor([cfg.dt] * s, dtype=f32, device=dev)
+    charge = torch.tensor([sc.charge for sc in cfg.species], dtype=f32,
+                          device=dev)
+    e = 0.1 * torch.randn(ng, generator=gen, device=dev)
+    kw = dict(x0=0.0, dx=1.0, nc=nc, length=length, b=cfg.b_field,
+              boundary="open", deposit=True)
+    dkw = dict(x0=0.0, dx=1.0, nc=nc)
+    out = {}
+    for n_q in (1, 4):
+        n = cap_l // n_q
+        alive = (torch.arange(n, device=dev) < (n * 10) // 16).expand(s, n) \
+            .contiguous()
+        x = torch.rand(s, n, generator=gen, device=dev) * length
+        v = torch.randn(s, n, 3, generator=gen, device=dev) * 0.1
+        w = alive.to(f32)
+        fargs = (x, v, w, alive, e, qm * dts, dts, charge)
+        compare_fused(fused_cycle, fargs, kw, length, False)
+        nbytes = s * n * 44 + 2 * ng * 4
+        fb, _ = bound_ms(nbytes, s * n * (PUSH_FLOPS + DEPOSIT_FLOPS))
+        _, dms = timed(f"engine queue push at async_n {n_q} ({s}, {n}) at "
+                       f"{ng} nodes ({deposit.deposit_form(ng)} form)",
+                       lambda: fused_cycle.fused_push_deposit(*fargs, **kw),
+                       fb)
+        out[f"push_q{n_q}"] = dms
+        m_q = ENGINE_MAX_MIGRATION // n_q
+        for label, rows, charged in (
+                ("leavers", s * 2 * m_q, 40),
+                ("merged rows", s * (2 * ENGINE_MAX_MIGRATION
+                                     + ENGINE_MAX_BIRTHS), 2 * 5_500)):
+            xs = torch.rand(rows, generator=gen, device=dev) * length
+            q = torch.zeros(rows, device=dev)
+            q[torch.randperm(rows, generator=gen, device=dev)[:charged]] = 1.0
+            compare_deposit(deposit, xs, q, dkw)
+            db, _, _ = deposit_bound(q, ng)
+            _, dms = timed(f"engine deposit of the {label} at async_n {n_q} "
+                           f"({rows} rows, {charged} charged) at {ng} nodes "
+                           f"({deposit.deposit_form(ng)} form)",
+                           lambda: deposit.deposit(xs, q, **dkw), db)
+            out[f"{label}_q{n_q}"] = dms
+        del x, v, w, alive, fargs
+    torch.cuda.empty_cache()
+    return out
+
+
+def engine_card_vs_cpu(dev):
+    """The bench configuration (field solve on, rho carried, ionization)
+    at D = 4, async_n = 2 on the card and on the CPU from one state, with
+    the same draws, 3 steps: counts, masks, ring and pending integers
+    exact; x within 1e-5 of the slab, v within 1e-4 of max|v|, rho within
+    1e-3."""
+    import numpy as np
+
+    from repro_torch.configs.pic_bit1 import make_bench_config
+    from repro_torch.distributed import engine
+
+    cfg = dataclasses.replace(make_bench_config(strategy="fused"),
+                              field_solve=True)
+    ecfg = engine_config(4, 2, cfg)
+    cpu = engine.init_engine_state(ecfg, 5, device="cpu")
+    card = engine.state_from_numpy(ecfg, engine.to_numpy(cpu), device=dev)
+    step = engine.make_engine_step(ecfg)
+    rng = np.random.default_rng(8)
+    cap_q = ecfg.local_cap(cfg.species[0]) // ecfg.async_n
+    length = ecfg.local_nc() * cfg.dx
+    for k in range(3):
+        draws = [{"ionize": [{
+            "uniform": rng.random(cap_q, dtype=np.float32),
+            "normal": rng.standard_normal((cap_q, 3), dtype=np.float32)}
+            for _ in range(ecfg.async_n)], "see": [], "collide": []}
+            for _ in range(ecfg.domains)]
+        cpu, dc = step(cpu, draws)
+        card, dg = step(card, draws)
+        for key in dc:
+            if key.rsplit("/", 1)[-1] in ("count", "n_ionized",
+                                          "birth_overflow", "queue_occ",
+                                          "migrated_left", "migrated_right"):
+                check_equal(f"engine card vs CPU step {k} {key}",
+                            dg[key].cpu(), dc[key])
+        ex = ev = 0.0
+        for bc, bg in zip(cpu.species, card.species):
+            check_equal(f"engine card vs CPU alive step {k}",
+                        bg.alive.cpu(), bc.alive)
+            ex = max(ex, periodic_err(bg.x.cpu(), bc.x, length))
+            vmax = float(bc.v.abs().max())
+            ev = max(ev, max_err(bg.v.cpu(), bc.v) / (1.0 + vmax))
+        for rc, rg in zip(cpu.rings, card.rings):
+            for f in ("slots", "head", "count"):
+                check_equal(f"engine card vs CPU ring {f} step {k}",
+                            getattr(rg, f).cpu(), getattr(rc, f))
+        for pc, pg in zip(cpu.pending, card.pending):
+            for f in ("dest", "alive"):
+                check_equal(f"engine card vs CPU pending {f} step {k}",
+                            getattr(pg, f).cpu(), getattr(pc, f))
+        er = max_err(card.rho.cpu(), cpu.rho)
+        rmax = float(cpu.rho.abs().max())
+        if ex > 1e-5 * length or ev > 1e-4 or er > RHO_TOL * (1.0 + rmax):
+            raise AssertionError(f"engine card vs CPU step {k}: x {ex}, v "
+                                 f"{ev} (of 1+max|v|), rho {er} (max {rmax})")
+        log(f"engine card vs CPU step {k} (D 4, async_n 2): counts, masks, "
+            f"rings and pending equal, ionized {int(dg['n_ionized'])}, max "
+            f"|dx| {ex:.3g}, max |dv|/(1+max|v|) {ev:.3g}, max |drho| "
+            f"{er:.3g}")
+    del cpu, card
+
+
+LAUNCHER_LINES = (
+    r"mc sources \(last step\): \{'n_ionized': \d+, 'birth_overflow': 0\}",
+    r"3 steps, 4 domain\(s\), async_n=4, rebalance_every=0, "
+    r"strategy=fused: \d+\.\d\ds \(\d+\.\d ms/step\)",
+    r"final populations: \{'e/count': \d+, 'D\+/count': \d+, "
+    r"'D/count': \d+\}",
+    r"queue balance: \{'e/queue_occ': \[\d+, \d+, \d+, \d+\], "
+    r"'e/queue_skew': \d+, .*\}",
+    r"per-phase \(us/step\): \{'ingest': [\d.]+, 'field': [\d.]+, "
+    r"'push': [\d.]+, 'collide': [\d.]+, 'migrate': [\d.]+, "
+    r"'merge': [\d.]+, 'diag': [\d.]+\} total=[\d.]+")
+
+
+def engine_launcher(counters):
+    """``pic_run --domains 4 --async-n 4 --field-solve --phases`` at full
+    size, 3 steps: its lines in the reference launcher's form."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import pic_run
+
+    reset_launches(counters)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pic_run.main(["--domains", "4", "--async-n", "4", "--field-solve",
+                      "--phases", "--nc", "102400", "--particles",
+                      "10485760", "--strategy", "fused", "--steps", "3"])
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  pic_run: {line}")
+    for pat, line in zip(LAUNCHER_LINES, lines):
+        if not re.fullmatch(pat, line):
+            raise AssertionError(f"pic_run line {line!r} is not in the "
+                                 f"reference launcher's form {pat!r}")
+    if len(lines) < len(LAUNCHER_LINES) or not all(
+            ln.startswith("probe flag: ")
+            for ln in lines[len(LAUNCHER_LINES):]):
+        raise AssertionError(f"pic_run printed {lines}")
+    counts = launches(counters)
+    log(f"engine pic_run --domains 4 --async-n 4: launches {counts}")
+    return counts
+
+
+def engine_phase(dev):
+    """The multi-domain engine at the §3.3 configuration and beside it;
+    returns (launches summed over the engine's paths, numbers)."""
+    from repro_torch.distributed import engine, perf
+    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+
+    t0 = time.perf_counter()
+    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
+                "mover_push": mover.mover_push, "deposit": deposit.deposit,
+                "ta_kick": collide.ta_kick}
+    paths, numbers = {}, {}
+    numbers["calibration_overlap_ms"] = trace_calibration()
+    for d, n_q in ENGINE_RUNS:
+        label = f"D{d}xq{n_q}"
+        ecfg = engine_config(d, n_q)
+        state, ms, paths[label], _, _ = drive_engine(
+            ecfg, ENGINE_STEPS, f"§3.3 field + ionization, D {d}, async_n "
+            f"{n_q}", counters, dev)
+        busy, overlap = profile_engine(ecfg, state, label, ms)
+        probe = perf.phase_breakdown(ecfg, iters=3, warmup=1, state=state)
+        log(f"engine {label} per-phase (device µs a step, CUDA events): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in probe["phases"].items())
+            + f"; total {probe['total']:.1f}; cumulative medians "
+            + ", ".join(f"{k} {v['median']:.1f}"
+                        for k, v in probe["cumulative"].items()))
+        for flag in probe["flags"]:
+            log(f"  probe flag: {flag}")
+        numbers[label] = dict(host_ms=ms, busy_ms=busy, overlap_ms=overlap,
+                              phases_us=probe["phases"])
+        del state
+        torch.cuda.empty_cache()
+
+    # the queue split is scheduling only: async_n 1 and 4 at D = 4 see the
+    # same particles (ionization off, field on)
+    diags = {}
+    for n_q in (1, 4):
+        ecfg = engine_config(4, n_q, dataclasses.replace(
+            engine_config(1, 1).pic, ionization=None))
+        state, _, paths[f"parity_q{n_q}"], diags[n_q], sums = drive_engine(
+            ecfg, 3, f"queue parity D 4, async_n {n_q}", counters, dev)
+        diags[n_q]["migrated"] = sum(v for k, v in sums.items()
+                                     if "migrated" in k)
+        del state
+    for key in diags[1]:
+        if key.endswith(("/count", "/charge")) or key == "migrated":
+            if int(diags[1][key]) != int(diags[4][key]):
+                raise AssertionError(f"queue parity: {key} {diags[1][key]} "
+                                     f"!= {diags[4][key]}")
+        if key.endswith("/ke"):
+            a, b = float(diags[1][key]), float(diags[4][key])
+            if abs(a - b) > 1e-5 * abs(a):
+                raise AssertionError(f"queue parity: {key} {a} vs {b}")
+    log("engine queue parity (D 4, async_n 1 vs 4, 3 steps): counts, charge "
+        "and migrations equal, KE within 1e-5")
+
+    ecfg = engine_config(4, 4, collision_config())
+    state, ms, paths["collisions"], _, sums = drive_engine(
+        ecfg, 2, "collisions (menu + T-A kernel), D 4, async_n 4", counters,
+        dev)
+    numbers["collisions_host_ms"] = ms
+    del state
+    torch.cuda.empty_cache()
+
+    numbers["kernels"] = engine_kernel_times(dev)
+    engine_card_vs_cpu(dev)
+    paths["pic_run"] = engine_launcher(counters)
+    counts = {name: sum(p[name] for p in paths.values())
+              for name in paths[f"D{ENGINE_RUNS[0][0]}xq1"]}
+    for name in ("fused_push_deposit", "deposit", "ta_kick",
+                 "fused_push_deposit/block", "fused_push_deposit/pair",
+                 "deposit/block", "deposit/pair"):
+        if counts[name] <= 0:
+            raise AssertionError(f"engine: kernel {name} never launched")
+    numbers["seconds"] = time.perf_counter() - t0
+    log(f"engine phase: {numbers['seconds']:.1f} s, launches summed over "
+        f"its paths {counts}")
+    return counts, numbers
+
+
 # ---------------------------------------------------------------- phase 7 --
 
 def rel_err(got, want) -> float:
@@ -1521,6 +2030,9 @@ def main() -> int:
                   1)
     card_vs_cpu_phase(dev)
     collision_card_vs_cpu_phase(dev)
+    engine_counts, eng = engine_phase(dev)
+    for k in ("fused_push_deposit", "mover_push", "deposit", "ta_kick"):
+        counts[k] += engine_counts[k]
     kernels["flash_attention"] = flash_phase(dev)
     counts["flash_attention"], lm = lm_serve_phase(dev)
     lm_card_vs_cpu_phase(dev)
@@ -1530,6 +2042,11 @@ def main() -> int:
         for k in kernels))
     log(f"main path ms/step (median after the first step): "
         + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    for label in (f"D{d}xq{n}" for d, n in ENGINE_RUNS):
+        r = eng[label]
+        log(f"engine {label}: host {r['host_ms']:.3f} ms/step, device busy "
+            f"{r['busy_ms']} ms, cross-stream overlap {r['overlap_ms']} ms")
+    log(f"engine phase: {eng['seconds']:.1f} s")
     log(f"LM {LM_ARCH}: prefill 8 x 4096 {lm['prefill_ms']:.3f} ms "
         f"({lm['prefill_tok_s']:.0f} tok/s), decode {lm['decode_ms']:.3f} "
         f"ms/step at batch 4 ({lm['decode_tok_s']:.1f} tok/s), decode vs "

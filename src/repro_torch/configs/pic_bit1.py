@@ -142,3 +142,23 @@ def make_collision_config(nc: int = 4096, n: int = 262_144,
                             diag_every=diag_every)
     return dataclasses.replace(
         cfg, ionization=None, collisions=make_collision_menu(menu, **rates))
+
+
+def make_engine_config(pic_cfg: pic.PICConfig | None = None, *,
+                       domains: int = 1, async_n: int = 1,
+                       max_migration: int = 8192, rebalance_every: int = 0,
+                       rebalance_skew: int = 0, max_births: int = 8192,
+                       use_ring: bool = True, cell_order: bool = False,
+                       metrics: bool = False, **bench_kw):
+    """EngineConfig of the multi-domain engine with the knobs the launcher
+    shares (the reference's, with ``domains`` for its mesh axes); with no
+    ``pic_cfg`` the bench config is built from ``bench_kw``."""
+    from repro_torch.distributed import engine  # deferred: configs stay light
+
+    if pic_cfg is None:
+        pic_cfg = make_bench_config(**bench_kw)
+    return engine.EngineConfig(
+        pic=pic_cfg, domains=domains, async_n=async_n,
+        max_migration=max_migration, max_births=max_births,
+        rebalance_every=rebalance_every, rebalance_skew=rebalance_skew,
+        use_ring=use_ring, cell_order=cell_order, metrics=metrics)

@@ -41,7 +41,9 @@ import torch
 
 from repro_torch.core.grid import Grid1D, deposit_density, gather
 from repro_torch.core.particles import (SpeciesBuffer, _put, cell_bins,
-                                        inject_masked, kill)
+                                        inject_masked, kill, nonzero_static,
+                                        take)
+from repro_torch.kernels.mover import inv_dx
 
 
 class IonizationParams(NamedTuple):
@@ -58,6 +60,23 @@ class IonizationBirths(NamedTuple):
     v_ion: torch.Tensor       # (cap, 3)
     w: torch.Tensor           # (cap,)
     ok: torch.Tensor          # (cap,) bool: pair actually born
+
+
+class BirthPack(NamedTuple):
+    """Packed ionization kills and births of one queue (``budget`` rows).
+
+    ``slot`` holds the queue-local indices of the neutrals that won a budget
+    row (``ok``); the caller decides which die (ring availability) and feeds
+    the freed slots to ``ring_push``. ``n_events`` counts every hit before
+    the clamp; hits beyond the budget survive and retry next step."""
+
+    slot: torch.Tensor        # (B,) int32 queue-local neutral slot, cap pad
+    ok: torch.Tensor          # (B,) bool: row holds a real event
+    x: torch.Tensor           # (B,)
+    v_electron: torch.Tensor  # (B, 3)
+    v_ion: torch.Tensor       # (B, 3)
+    w: torch.Tensor           # (B,)
+    n_events: torch.Tensor    # () int32 hits before the budget clamp
 
 
 def ionization_events(gen: torch.Generator, x: torch.Tensor,
@@ -118,6 +137,28 @@ def ionize(gen: torch.Generator, neutrals: SpeciesBuffer,
         "birth_overflow": (hit & ~allowed).sum(dtype=torch.int32),
     }
     return neutrals, electrons, ions, diag, births
+
+
+def ionize_packed(gen: torch.Generator, neutrals: SpeciesBuffer, grid: Grid1D,
+                  params: IonizationParams, dt: float, ne: torch.Tensor,
+                  budget: int, draws: dict | None = None) -> BirthPack:
+    """MC ionization with kills and births as packed rows (the engine's
+    per-queue form). Events are drawn over the queue slice (``draws`` as
+    ``ionization_events``) and the first ``budget`` hits are packed by
+    their prefix-sum rank; later hits do not ionize this step. Neutrals
+    outside [0, grid.length), crossers awaiting migration, are excluded.
+    The caller kills the rows it accepts (``particles.kill_packed``)."""
+    ne_at = gather(grid, ne, neutrals.x)
+    inside = (neutrals.x >= 0.0) & (neutrals.x < grid.length)
+    hit, ve = ionization_events(gen, neutrals.x, neutrals.alive & inside,
+                                ne_at, params, dt, draws)
+    cap = neutrals.capacity
+    idx = nonzero_static(hit, budget, cap)
+    sub = take(neutrals, idx)             # alive == row won a budget slot
+    ve_rows = torch.where(sub.alive[:, None], ve[idx.clamp(0, cap - 1)], 0.0)
+    return BirthPack(slot=idx.to(torch.int32), ok=sub.alive, x=sub.x,
+                     v_electron=ve_rows, v_ion=sub.v, w=sub.w,
+                     n_events=hit.sum(dtype=torch.int32))
 
 
 # ---- per-cell binary collisions ---------------------------------------------
@@ -198,7 +239,7 @@ def _eligible(x: torch.Tensor, alive: torch.Tensor,
 def _cells(x: torch.Tensor, ok: torch.Tensor, dx: float,
            nc: int) -> torch.Tensor:
     """Cell key per row (int32); ineligible rows parked at ``nc``."""
-    c = torch.floor(x / dx).to(torch.int32).clamp(0, nc - 1)
+    c = torch.floor(x * inv_dx(dx)).to(torch.int32).clamp(0, nc - 1)
     return torch.where(ok, c, nc)
 
 
@@ -234,7 +275,7 @@ def cell_density(grid: Grid1D, buf: SpeciesBuffer) -> torch.Tensor:
     w = torch.where(ok, buf.w, 0.0)
     hist = torch.zeros(grid.nc + 1, dtype=buf.x.dtype, device=buf.x.device)
     hist.index_add_(0, c.long(), w)
-    return hist[:grid.nc] / grid.dx
+    return hist[:grid.nc] * inv_dx(grid.dx)
 
 
 def cell_shuffled_order(gen: torch.Generator, cell: torch.Tensor,

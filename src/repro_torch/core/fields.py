@@ -5,6 +5,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.mover import inv_dx
+
+
+def reciprocal(v: float, dtype: torch.dtype) -> float:
+    """1/v in ``dtype``'s precision: the float32 reciprocal for float32."""
+    return inv_dx(v) if dtype == torch.float32 else 1.0 / v
+
 
 def solve_poisson(rho: torch.Tensor, dx: float, eps0: float = 1.0,
                   phi_left: float = 0.0, phi_right: float = 0.0
@@ -34,12 +41,39 @@ def solve_poisson(rho: torch.Tensor, dx: float, eps0: float = 1.0,
     return phi
 
 
+def thomas(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
+           b: torch.Tensor) -> torch.Tensor:
+    """Generic tridiagonal solve (Thomas algorithm), in the diagonals'
+    dtype. dl/d/du: sub/main/super diagonals (dl[0] and du[-1] ignored),
+    b: right-hand side. Sequential in n, as the reference's ``lax.scan``:
+    the substrate for non-uniform systems; the uniform Poisson system uses
+    the prefix-sum solver above."""
+    n = d.shape[0]
+    cp = torch.empty_like(d)
+    dp = torch.empty_like(d)
+    cp_prev = dp_prev = torch.zeros((), dtype=d.dtype, device=d.device)
+    for i in range(n):
+        denom = d[i] - dl[i] * cp_prev
+        cp[i] = du[i] / denom
+        dp[i] = (b[i] - dl[i] * dp_prev) / denom
+        cp_prev, dp_prev = cp[i], dp[i]
+    xs = torch.empty_like(d)
+    x_next = torch.zeros((), dtype=d.dtype, device=d.device)
+    for i in range(n - 1, -1, -1):
+        xs[i] = dp[i] - cp[i] * x_next
+        x_next = xs[i]
+    return xs
+
+
 def efield(phi: torch.Tensor, dx: float) -> torch.Tensor:
-    """E = -dphi/dx on nodes (centred inside, one-sided at the walls)."""
+    """E = -dphi/dx on nodes (centred inside, one-sided at the walls). The
+    differences are multiplied by the reciprocals of 2 dx and dx, as jitted
+    JAX rounds the reference's divisions (float32 reciprocals for a float32
+    phi)."""
     e = torch.empty_like(phi)
-    e[1:-1] = -(phi[2:] - phi[:-2]) / (2.0 * dx)
-    e[0] = -(phi[1] - phi[0]) / dx
-    e[-1] = -(phi[-1] - phi[-2]) / dx
+    e[1:-1] = -(phi[2:] - phi[:-2]) * reciprocal(2.0 * dx, phi.dtype)
+    e[0] = -(phi[1] - phi[0]) * reciprocal(dx, phi.dtype)
+    e[-1] = -(phi[-1] - phi[-2]) * reciprocal(dx, phi.dtype)
     return e
 
 

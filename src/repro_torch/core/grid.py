@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.particles import SpeciesBuffer
 from repro_torch.kernels import ops
+from repro_torch.kernels.mover import cic
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,10 +37,9 @@ class Grid1D:
 
 def _cic_weights(grid: Grid1D, x: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Left node index i (int64, in [0, nc-1]) and fraction f in [0, 1]."""
-    s = (x - grid.x0) / grid.dx
-    fl = torch.clamp(torch.floor(s), 0, grid.nc - 1)
-    return fl.long(), torch.clamp(s - fl, 0.0, 1.0)
+    """Left node index i (int64, in [0, nc-1]) and fraction f in [0, 1], at
+    s = (x - x0) * inv_dx, the kernels' cell coordinate."""
+    return cic(x, grid.x0, grid.dx, grid.nc)
 
 
 def deposit_windowed(grid: Grid1D, x: torch.Tensor,

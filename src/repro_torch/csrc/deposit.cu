@@ -58,9 +58,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1) deposit_block_kernel(
 // pairs. Returns cudaGetLastError() after the launches; the caller raises
 // if not 0.
 extern "C" int deposit(const void* x, const void* q, void* rho, void* pair,
-                       long long n, float x0, float dx, int nc, void* stream) {
+                       long long n, float x0, float inv_dx, int nc,
+                       void* stream) {
   constexpr int kThreads = 256;
-  const Grid g{x0, dx, 0.0f, 0.0f, nc};
+  const Grid g{x0, inv_dx, 0.0f, 0.0f, nc};
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   deposit_kernel<<<blocks, kThreads, 0, s>>>(
@@ -76,9 +77,9 @@ extern "C" int deposit(const void* x, const void* q, void* rho, void* pair,
 // (n_blocks, nc+1); a second kernel sums the rows into rho. Returns the
 // first CUDA error; the caller raises if not 0.
 extern "C" int deposit_block(const void* x, const void* q, void* rows,
-                             void* rho, long long n, float x0, float dx,
+                             void* rho, long long n, float x0, float inv_dx,
                              int nc, int n_blocks, void* stream) {
-  const Grid g{x0, dx, 0.0f, 0.0f, nc};
+  const Grid g{x0, inv_dx, 0.0f, 0.0f, nc};
   return (int)launch_blocks(deposit_block_kernel, n_blocks,
                             (cudaStream_t)stream, (const float*)rows,
                             (float*)rho, nc + 1, (const float*)x,

@@ -173,14 +173,14 @@ Args make_args(const void* x, const void* v, const void* w, const void* alive,
                const void* e, const void* qm_dt, const void* dt,
                const void* charge, void* xo, void* vo, void* wo, void* ao,
                void* hlo, void* hro, long long cap, int num_species, float x0,
-               float dx, int nc, float length, float clamp_hi, float bx,
+               float inv_dx, int nc, float length, float clamp_hi, float bx,
                float by, float bz, void* stream) {
   return Args{(const float*)x,      (const float*)v,   (const float*)w,
               (const uint8_t*)alive, (const float*)e,  (const float*)qm_dt,
               (const float*)dt,     (const float*)charge, (float*)xo,
               (float*)vo,           (float*)wo,        (uint8_t*)ao,
               (uint8_t*)hlo,        (uint8_t*)hro,     cap,
-              num_species,          Grid{x0, dx, length, clamp_hi, nc},
+              num_species,          Grid{x0, inv_dx, length, clamp_hi, nc},
               bx,                   by,                bz,
               (cudaStream_t)stream};
 }
@@ -195,12 +195,12 @@ extern "C" int fused_push_deposit(
     const void* x, const void* v, const void* w, const void* alive,
     const void* e, const void* qm_dt, const void* dt, const void* charge,
     void* xo, void* vo, void* wo, void* ao, void* hlo, void* hro, void* rho,
-    void* pair, long long cap, int num_species, float x0, float dx, int nc,
-    float length, float clamp_hi, float bx, float by, float bz, int boundary,
-    void* stream) {
+    void* pair, long long cap, int num_species, float x0, float inv_dx,
+    int nc, float length, float clamp_hi, float bx, float by, float bz,
+    int boundary, void* stream) {
   const Args a = make_args(x, v, w, alive, e, qm_dt, dt, charge, xo, vo, wo,
-                           ao, hlo, hro, cap, num_species, x0, dx, nc, length,
-                           clamp_hi, bx, by, bz, stream);
+                           ao, hlo, hro, cap, num_species, x0, inv_dx, nc,
+                           length, clamp_hi, bx, by, bz, stream);
   const bool rotate = bx != 0.0f || by != 0.0f || bz != 0.0f;
   const PairAcc acc{(float2*)pair};
   cudaError_t err = cudaSuccess;
@@ -229,12 +229,12 @@ extern "C" int fused_push_deposit_block(
     const void* x, const void* v, const void* w, const void* alive,
     const void* e, const void* qm_dt, const void* dt, const void* charge,
     void* xo, void* vo, void* wo, void* ao, void* hlo, void* hro, void* rows,
-    void* rho, long long cap, int num_species, float x0, float dx, int nc,
-    float length, float clamp_hi, float bx, float by, float bz, int boundary,
-    int n_blocks, void* stream) {
+    void* rho, long long cap, int num_species, float x0, float inv_dx,
+    int nc, float length, float clamp_hi, float bx, float by, float bz,
+    int boundary, int n_blocks, void* stream) {
   const Args a = make_args(x, v, w, alive, e, qm_dt, dt, charge, xo, vo, wo,
-                           ao, hlo, hro, cap, num_species, x0, dx, nc, length,
-                           clamp_hi, bx, by, bz, stream);
+                           ao, hlo, hro, cap, num_species, x0, inv_dx, nc,
+                           length, clamp_hi, bx, by, bz, stream);
   const bool rotate = bx != 0.0f || by != 0.0f || bz != 0.0f;
   return by_instance(boundary, rotate, [&](auto kernel) {
     return (int)launch_blocks(kernel, n_blocks, a.stream, (const float*)rows,

@@ -24,11 +24,12 @@
 
 enum Boundary : int { kPeriodic = 0, kAbsorb = 1, kOpen = 2 };
 
-// Geometry of one 1D domain. clamp_hi = float32(length) * float32(1 - 1e-7)
-// is computed once by the host, where the plain version computes it too.
+// Geometry of one 1D domain. inv_dx = float32(1 / float32(dx)) and
+// clamp_hi = float32(length) * float32(1 - 1e-7) are computed once by the
+// host, where the plain version computes them too.
 struct Grid {
   float x0;
-  float dx;
+  float inv_dx;
   float length;
   float clamp_hi;
   int nc;
@@ -36,9 +37,12 @@ struct Grid {
 
 // Left node i in [0, nc-1] and fraction f in [0, 1]. A position exactly on
 // `length` (a periodic wrap can round there) gets i = nc-1, f = 1: node nc
-// takes the charge and nothing reads past node nc = ng-1.
+// takes the charge and nothing reads past node nc = ng-1. The cell
+// coordinate is (x - x0) * inv_dx, which is how jitted JAX rounds the
+// reference's (x - x0) / dx: XLA turns a division by a constant into a
+// multiply by its float32 reciprocal.
 __device__ __forceinline__ void cic(float x, const Grid& g, int& i, float& f) {
-  const float s = (x - g.x0) / g.dx;
+  const float s = (x - g.x0) * g.inv_dx;
   const float fl = fminf(fmaxf(floorf(s), 0.0f), (float)(g.nc - 1));
   i = (int)fl;
   f = fminf(fmaxf(s - fl, 0.0f), 1.0f);

@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mover import cic
+from repro_torch.kernels.mover import cic, inv_dx
 
 # the shared memory a block of an sm_90 card may use (227 KB, after
 # cudaFuncAttributeMaxDynamicSharedMemorySize)
@@ -144,12 +144,12 @@ def deposit(x: torch.Tensor, q: torch.Tensor, *, x0: float, dx: float,
         rho, rows = accumulators(form, nb, ng, x.device)
         fn = _build.function("deposit", "deposit_block", _BLOCK_ARGTYPES)
         err = fn(x.data_ptr(), q.data_ptr(), rows.data_ptr(), rho.data_ptr(),
-                 n, x0, dx, nc, nb, stream)
+                 n, x0, inv_dx(dx), nc, nb, stream)
     else:
         rho, pair = accumulators(form, 0, ng, x.device)
         fn = _build.function("deposit", "deposit", _ARGTYPES)
         err = fn(x.data_ptr(), q.data_ptr(), rho.data_ptr(), pair.data_ptr(),
-                 n, x0, dx, nc, stream)
+                 n, x0, inv_dx(dx), nc, stream)
     count_launch(deposit, form)
     _build.check_launch(err, f"deposit ({form})")
     return rho

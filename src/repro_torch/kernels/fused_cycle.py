@@ -33,7 +33,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import deposit as _deposit
 from repro_torch.kernels.deposit import deposit_plain
 from repro_torch.kernels.mover import (BOUNDARY_CODES, check_boundary,
-                                      clamp_hi, push_plain)
+                                      clamp_hi, inv_dx, push_plain)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,7 +96,8 @@ def fused_push_deposit(x, v, w, alive, e, qm_dt, dt, charge, *, x0, dx, nc,
             e.data_ptr(), qm_dt.data_ptr(), dt.data_ptr(), charge.data_ptr(),
             xo.data_ptr(), vo.data_ptr(), wo.data_ptr(), ao.data_ptr(),
             hl.data_ptr(), hr.data_ptr())
-    grid = (cap, s, x0, dx, nc, length, clamp_hi(length), *bf, code)
+    grid = (cap, s, x0, inv_dx(dx), nc, length, clamp_hi(length), *bf,
+            code)
     stream = _build.stream_of(x)
     rho = None
     if form == "block":

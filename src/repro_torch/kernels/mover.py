@@ -39,10 +39,19 @@ def clamp_hi(length: float) -> float:
     return float(np.float32(length) * np.float32(1.0 - 1e-7))
 
 
+def inv_dx(dx: float) -> float:
+    """float32(1 / float32(dx)). Every path multiplies by it where the
+    reference divides by dx: jitted JAX makes a division by a constant a
+    multiply by its float32 reciprocal, and PyTorch on CUDA does the same
+    with a Python scalar, while an IEEE division (PyTorch on the CPU, the
+    kernels before) rounds an ulp apart whenever dx is no power of two."""
+    return float(np.float32(1.0) / np.float32(dx))
+
+
 def cic(x: torch.Tensor, x0: float, dx: float, nc: int):
     """Left node index (int64, clipped to [0, nc-1]) and fraction (clipped
-    to [0, 1]) of cloud-in-cell weighting."""
-    s = (x - x0) / dx
+    to [0, 1]) of cloud-in-cell weighting, at s = (x - x0) * inv_dx(dx)."""
+    s = (x - x0) * inv_dx(dx)
     fl = torch.clamp(torch.floor(s), 0, nc - 1)
     return fl.long(), torch.clamp(s - fl, 0.0, 1.0)
 
@@ -117,7 +126,7 @@ def mover_push(x, v, alive, e, *, x0, dx, nc, length, qm_dt, dt, b,
     fn = _build.function("mover", "mover_push", _ARGTYPES)
     err = fn(x.data_ptr(), v.data_ptr(), alive.data_ptr(), e.data_ptr(),
              xo.data_ptr(), vo.data_ptr(), ao.data_ptr(), hl.data_ptr(),
-             hr.data_ptr(), n, x0, dx, nc, length, clamp_hi(length),
+             hr.data_ptr(), n, x0, inv_dx(dx), nc, length, clamp_hi(length),
              qm_dt, dt, *(float(c) for c in b), BOUNDARY_CODES[boundary],
              _build.stream_of(x))
     mover_push.launches += 1

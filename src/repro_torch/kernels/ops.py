@@ -56,7 +56,7 @@ def fused_push_deposit(x, v, w, alive, e, qm_dt, dt, charge, rho_carry=None,
     *out, rho = fn(x, v, w, alive, e, qm_dt, dt, charge, x0=x0, dx=dx, nc=nc,
                    length=length, b=b, boundary=boundary, deposit=deposit)
     if rho is not None:
-        rho = rho / dx
+        rho = rho * _mover.inv_dx(dx)
         if rho_carry is not None:
             rho = rho_carry + rho
     return (*out, rho)
@@ -66,7 +66,7 @@ def deposit(x: torch.Tensor, q: torch.Tensor, *, x0: float, dx: float,
             nc: int) -> torch.Tensor:
     """CIC deposition of charge q (n,) at positions x (n,) -> (nc+1,)/dx."""
     fn = _deposit.deposit if _on_card(x) else _deposit.deposit_plain
-    return fn(x, q, x0=x0, dx=dx, nc=nc) / dx
+    return fn(x, q, x0=x0, dx=dx, nc=nc) * _mover.inv_dx(dx)
 
 
 def ta_kick(u: torch.Tensor, delta: torch.Tensor,

@@ -98,3 +98,48 @@ def step_draws(cfg, key):
 def periodic_dist(a, b, length):
     d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
     return np.minimum(d, length - d)
+
+
+def engine_draws(cfg, keys, n_q, m_q, caps_q, group_of):
+    """The random arrays the reference engine's step draws, per domain,
+    from the domains' keys ``keys`` (D, 2), in its split order
+    (``repro.distributed.engine``: the MC split, folded with the rank, into
+    ionization keys per queue and SEE keys per pair and queue; then the
+    collision split, folded with the rank, into keys per queue, each
+    folded with the capacity group). ``caps_q`` maps species index ->
+    queue capacity, ``group_of`` species index -> capacity group.
+
+    Returns (draws for the port's step, the reference's keys after it)."""
+    ion = cfg.ionization
+    see = (tuple(cfg.wall_emission)
+           if cfg.wall_emission and cfg.boundary == "absorb" else ())
+    coll = tuple(cfg.collisions)
+    draws, nxt = [], []
+    for r, key in enumerate(np.asarray(keys)):
+        key = jax.numpy.asarray(key)
+        dr = {"ionize": [], "see": [], "collide": []}
+        if ion is not None or see:
+            key, k_mc = jax.random.split(key)
+            k_mc = jax.random.fold_in(k_mc, r)
+            k_ion, k_see = jax.random.split(k_mc)
+            ion_keys = jax.random.split(k_ion, n_q)
+            if ion is not None:
+                dr["ionize"] = [_source_draws(ion_keys[k], (caps_q[ion[0]],))
+                                for k in range(n_q)]
+            if see:
+                see_keys = jax.random.split(k_see, len(see) * n_q).reshape(
+                    (len(see), n_q, -1))
+                dr["see"] = [[_source_draws(see_keys[p, k], (2 * m_q,))
+                              for k in range(n_q)] for p in range(len(see))]
+        if coll:
+            key, k_coll = jax.random.split(key)
+            k_coll = jax.random.fold_in(k_coll, r)
+            coll_keys = jax.random.split(k_coll, n_q)
+            groups = sorted({group_of[cc.species] for cc in coll})
+            dr["collide"] = [{
+                g: menu_draws([cc for cc in coll if group_of[cc.species] == g],
+                              jax.random.fold_in(coll_keys[k], g), caps_q)
+                for g in groups} for k in range(n_q)]
+        draws.append(dr)
+        nxt.append(n(key))
+    return draws, np.stack(nxt)

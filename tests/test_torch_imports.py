@@ -147,3 +147,31 @@ def test_chip_smoke_fails_without_a_card_or_the_port(alone, tmp_path):
                          text=True, cwd=script.parent, timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_distributed_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['jaxlib'] = None; sys.modules['repro'] = None\n"
+            "import repro_torch.distributed\n"
+            "from repro_torch.distributed import engine, halo, perf\n"
+            "import repro_torch.core.decomposition\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_engine_config_fields_match_but_for_the_mesh_axes():
+    """The reference takes mesh axis names, the port a domain count; every
+    other field and default is the reference's."""
+    from repro.distributed import engine as ref_engine
+    from repro_torch.distributed import engine as port_engine
+
+    ref = [f for f in _fields(ref_engine.EngineConfig)
+           if f[0] != "axis_names"]
+    port = [f for f in _fields(port_engine.EngineConfig)
+            if f[0] != "domains"]
+    assert port == ref
