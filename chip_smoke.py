@@ -26,6 +26,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    times by CUDA events (and the deposit kernels' device time behind a spin
    kernel) beside the least time the card allows, also at an engine
    domain's grid (25,601 nodes, the block form) and at 600,001 nodes;
+   the periodic wrap at positions on and just past each wall, at L = 10,
+   3.7 and 7, equal to the plain version's to the bit;
 3. the main paths at full width through the port's entry points, each with
    the kernels' launch counts (and the deposit kernels' counts by form)
    set to 0 just before it and read just after:
@@ -84,8 +86,38 @@ Phases (any failure raises and ends the run with a non-zero exit):
    within 1e-5 of the slab, v 1e-4 of max|v|, rho 1e-3); and ``pic_run
    --domains 4 --async-n 4 --field-solve --phases`` at full size, its
    lines in the reference launcher's form;
-10. one line of JSON with every kernel's numbers (launches summed over
-   the main paths and the engine's), then the result line.
+10. the engine's observability and resilience (after phase 9), at the
+   §3.3 configuration with the field solve and ionization at D 4 x
+   async_n 4, and at its bitwise configuration (field solve and ionization
+   off: no float atomics), with the kernels' launch counts set to 0
+   before each path and every step's launches pinned by
+   ``engine_launches``: (a) two steps under ``obs.tracing.trace_session``,
+   whose trace holds every scope name the steps entered; then the host
+   ms/step plain, under the profiler and with the metrics stream, in
+   alternating windows on one state of the §3.3 test with the field
+   solve off (quartiles, and the device busy a traced step from each
+   trace); (b) five steps streamed to a metrics JSONL file that
+   ``validate_stream`` accepts, the stream's own cost, and the metrics
+   toggle bitwise in the bitwise configuration; (c) the restart drill (``run_engine`` with a checkpoint
+   every 2 steps and a failure at step 4, ``resume_engine``, on to step
+   6): the restored state equal in every leaf and generator state to
+   the failed run's in memory, and the resumed run against that run
+   continued without the failure: bitwise in the bitwise configuration
+   (and equal to a second run from the start), at §3.3 counts, masks and
+   rings exact and x, v, rho in phase 9's card-vs-CPU bands, with each
+   checkpoint's bytes, fetch and write times; (d) elastic restores of
+   the §3.3 checkpoint of step 2 at D 2 and D 1: counts and charge exact,
+   rings consistent, two steps on with the overflow counters 0; (e) the auto-tuner for 8 steps from a migration
+   budget that overflows: at least one retune, pairs exact at every
+   step; (f) a checkpoint written on the card restored on the CPU and
+   one written on the CPU restored on the card, leaves equal, and
+   ``resume_training`` of parameters on the card resuming there; (g) the
+   launcher's restart drill (``--ckpt-dir --ckpt-every 2 --fail-at-step
+   3``, then ``--resume``), ``--profile-dir`` and ``--metrics-jsonl``
+   once each, and ``--autotune`` for 10 steps (one retune after its
+   window of 8);
+11. one line of JSON with every kernel's numbers (launches summed over
+   the main paths, the engine's and phase 10's), then the result line.
 
 Exits non-zero and prints no result without a CUDA device, or when the
 port's sources are not beside this script.
@@ -95,7 +127,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -248,6 +282,51 @@ def compare_mover(mover, args, kw, length, periodic):
         check_close(f"mover {name}", err, float(w.abs().max()), TOL)
         worst = max(worst, err)
     return worst
+
+
+def wall_positions(length: float, dev):
+    """float32 positions on and within 64 steps of -L, 0, L and 2L (at 0,
+    multiples of L's ulp; an ulp of 0 is subnormal)."""
+    import numpy as np
+
+    f32 = np.float32
+    step = np.spacing(f32(length))
+    out = [f32(k) * step for k in range(-64, 65)]
+    for wall in (-f32(length), f32(length), f32(2) * f32(length)):
+        lo = hi = wall
+        out.append(wall)
+        for _ in range(64):
+            lo = np.nextafter(lo, f32(-np.inf))
+            hi = np.nextafter(hi, f32(np.inf))
+            out += [lo, hi]
+    return torch.tensor(np.asarray(out, f32), device=dev)
+
+
+def compare_wrap(fused, mover, length, dev):
+    """The periodic wrap at positions on and just past each wall (v = 0,
+    E = 0, so the push leaves x as it is): kernel and plain version equal
+    to the bit, not only modulo L (the mover, and the fused kernel with
+    and without its deposit)."""
+    x = wall_positions(length, dev)
+    n, nc = x.numel(), 64
+    v = torch.zeros(n, 3, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    w = torch.ones(n, device=dev)
+    e = torch.zeros(nc + 1, device=dev)
+    kw = dict(x0=0.0, dx=length / nc, nc=nc, length=length,
+              b=(0.0, 0.0, 0.0), boundary="periodic")
+    got = mover.mover_push(x, v, alive, e, qm_dt=-0.05, dt=0.05, **kw)[0]
+    want = mover.mover_push_plain(x, v, alive, e, qm_dt=-0.05, dt=0.05,
+                                  **kw)[0]
+    check_equal(f"mover wrap at L = {length}", got, want)
+    one = torch.ones(1, device=dev)
+    fargs = (x[None], v[None], w[None], alive[None], e, -0.05 * one,
+             0.05 * one, -one)
+    for dep in (False, True):
+        got = fused.fused_push_deposit(*fargs, deposit=dep, **kw)[0]
+        want = fused.fused_push_deposit_plain(*fargs, deposit=dep, **kw)[0]
+        check_equal(f"fused wrap at L = {length} (deposit {dep})", got, want)
+    return int(((x < 0) | (x >= length)).sum())
 
 
 def compare_deposit(deposit, x, q, kw):
@@ -423,6 +502,14 @@ def kernel_phase(dev):
                           length, periodic)
         compare_mover(mover, (x[0], v[0], alive[0], e),
                       dict(kw, qm_dt=-0.05, dt=0.05), length, periodic)
+    # the wrap x - floor(x * float32(1 / L)) * L (jitted JAX's rounding of
+    # x / L): at 3.7 and 7 that reciprocal rounds L * (1 / L) off 1, so a
+    # division would put a position on a wall on the other side
+    outside = {length: compare_wrap(fused_cycle, mover, length, dev)
+               for length in (10.0, 3.7, 7.0)}
+    log(f"kernels: the periodic wrap at positions on and just past each "
+        f"wall equals the plain version's to the bit (positions outside "
+        f"[0, L) by length: {outside})")
     xs = torch.rand(3000, generator=gen, device=dev) * 10.0
     qs = torch.rand(3000, generator=gen, device=dev)
     qs[::3] = 0.0
@@ -667,6 +754,7 @@ def drive(cfg, steps, label, counters, per_step, dev, seed=0):
     ionized = 0
     colls = dict.fromkeys(COLL_KEYS, 0) if cfg.collisions else {}
     times = []
+    growth = []            # (field energy, e- KE) a step, field on
     reset_launches(counters)
     for k in range(steps):
         before = launches(counters)
@@ -688,8 +776,10 @@ def drive(cfg, steps, label, counters, per_step, dev, seed=0):
         for sc in cfg.species:
             if not bool(torch.isfinite(diag[f"{sc.name}/ke"])):
                 raise AssertionError(f"{label}: non-finite {sc.name}/ke")
-        if cfg.field_solve and not bool(torch.isfinite(diag["field_energy"])):
-            raise AssertionError(f"{label}: non-finite field energy")
+        if cfg.field_solve:
+            if not bool(torch.isfinite(diag["field_energy"])):
+                raise AssertionError(f"{label}: non-finite field energy")
+            growth.append((float(diag["field_energy"]), float(diag["e/ke"])))
     counts = launches(counters)
     ne, ni, nn = (int(b.count()) for b in state.species)
     if cfg.ionization is None:
@@ -716,6 +806,10 @@ def drive(cfg, steps, label, counters, per_step, dev, seed=0):
                                  f"D+ + D rel {rh}")
         extra = (f", collisions {colls}, KE rel change e {re:.3g} "
                  f"D+ + D {rh:.3g}")
+    if growth:
+        extra += (f", omega_p*dt {omega_p_dt(cfg):.4f}, field energy a step "
+                  f"{[f'{f:.4g}' for f, _ in growth]}, e- KE a step "
+                  f"{[f'{e:.4g}' for _, e in growth]}")
     steady = statistics.median(times[1:]) if steps > 1 else times[0]
     log(f"main path {label}: {steps} steps, ms/step "
         f"{[round(t, 3) for t in times]}"
@@ -726,6 +820,14 @@ def drive(cfg, steps, label, counters, per_step, dev, seed=0):
     del state
     torch.cuda.empty_cache()
     return steady, counts
+
+
+def omega_p_dt(cfg) -> float:
+    """The electrons' plasma frequency times dt at the mean density of
+    ``cfg``: the leapfrog push is stable below 2."""
+    e = cfg.species[0]
+    n = e.n_init * e.weight / (cfg.nc * cfg.dx)
+    return math.sqrt(n * e.charge ** 2 / (cfg.eps0 * e.mass)) * cfg.dt
 
 
 def collision_config(strategy="fused"):
@@ -1775,6 +1877,755 @@ def engine_phase(dev):
     return counts, numbers
 
 
+# ---------------------------------------------------------------- phase 10 --
+
+# the observability and resilience phase's files, under build/ of the
+# checkout (checkpoints of the §3.3 state take ~1.3 GB each)
+OBS_DIR = ROOT / "build" / "phase10"
+# the scope names one step at D 4 x async_n 4 with the field solve and
+# ionization enters (tests/test_torch_obs.py holds them to the reference's)
+STEP_SCOPES = (("engine/ingest", "engine/field", "engine/sources",
+                "engine/merge", "engine/diag", "halo/sum", "halo/smooth",
+                "halo/poisson", "halo/efield", "halo/ppermute")
+               + tuple(f"engine/{p}/q{k}" for p in ("push", "ionize",
+                                                    "migrate")
+                       for k in range(4)))
+
+
+def bitwise_pic():
+    """The §3.3 configuration with the field solve and ionization off: no
+    kernel of its step adds floats atomically (no deposit runs, and no
+    ionization reads a deposited density), so two runs on the card from
+    one state agree bit for bit."""
+    return dataclasses.replace(engine_config(1, 1).pic, field_solve=False,
+                               ionization=None)
+
+
+def pinned(step, ecfg, counters, label):
+    """``step`` with the kernels' launches of each call held to
+    ``engine_launches(ecfg)``."""
+    per_step = engine_launches(ecfg)
+
+    def run(state, *args):
+        before = launches(counters)
+        out = step(state, *args)
+        after = launches(counters)
+        delta = {n: after[n] - before[n] for n in after}
+        if delta != per_step:
+            raise AssertionError(f"{label}: launches {delta}, expected "
+                                 f"{per_step}")
+        return out
+
+    return run
+
+
+def state_leaves(state):
+    """{checkpoint key: tensor or array} of an engine state."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.distributed import engine
+
+    return {checkpoint._path_str(p): v
+            for p, v in checkpoint._leaves(engine.state_tree(state))}
+
+
+def same_leaf(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, torch.Tensor):
+        b = b.to(a.device) if isinstance(b, torch.Tensor) else \
+            torch.as_tensor(b, device=a.device)
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def check_states_bitwise(label, a, b, gens=True):
+    """Every leaf of two engine states equal (and each domain's generator
+    state, with ``gens``)."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if sorted(la) != sorted(lb):
+        raise AssertionError(f"{label}: leaves {sorted(la)} vs {sorted(lb)}")
+    bad = [k for k in la if not same_leaf(la[k], lb[k])]
+    if bad:
+        raise AssertionError(f"{label}: leaves {bad} differ")
+    if gens and not all(torch.equal(x.get_state(), y.get_state())
+                        for x, y in zip(a.gens, b.gens)):
+        raise AssertionError(f"{label}: generator states differ")
+
+
+def check_diags_bitwise(label, a, b):
+    import numpy as np
+
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} vs {len(b)} diags")
+    for i, (da, db) in enumerate(zip(a, b)):
+        if set(da) != set(db) or not all(np.array_equal(da[k], db[k])
+                                         for k in da):
+            raise AssertionError(f"{label}: diag of step +{i} differs")
+
+
+def check_pairs(label, n0, counts, ionized):
+    """Exact pair accounting: every ionization took one neutral and made
+    one electron and one ion."""
+    ne, ni, nn = counts
+    if not (ne - n0[0] == ni - n0[1] == ionized == n0[2] - nn
+            and ionized > 0):
+        raise AssertionError(
+            f"{label}: pair accounting broken: e {n0[0]}->{ne}, D+ "
+            f"{n0[1]}->{ni}, D {n0[2]}->{nn}, ionized {ionized}")
+
+
+def restart_drill(ecfg, label, exact, counters, dev, ckdir):
+    """``run_engine`` 6 steps with a checkpoint every 2 and a failure at
+    step 4, ``resume_engine`` (the restored state equal in every leaf and
+    generator state to the failed run's state in memory), and on to step
+    6, against the same run continued in memory without the failure:
+    every leaf, generator state and diag equal with ``exact`` (and equal
+    to a second run from the start too); otherwise counts, masks and
+    rings equal and x, v, rho within the card-vs-CPU bands of phase 9,
+    with exact pair accounting. Returns (the checkpointer, numbers)."""
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.distributed import engine
+    from repro_torch.obs.metrics import MetricsStream
+    from repro_torch.runtime import resilience
+    from repro_torch.runtime.fault_tolerance import (FailureInjector,
+                                                     SimulatedFailure)
+
+    pinned_step = pinned(engine.make_engine_step(ecfg), ecfg, counters,
+                         label)
+    last = {}
+
+    def step(state):
+        out = pinned_step(state)
+        last["state"] = out[0]
+        return out
+
+    init = engine.init_engine_state(ecfg, 0, device=dev)
+    n0 = resident_counts(init)
+    ck = Checkpointer(str(ckdir))
+    stream = MetricsStream()
+    inj = FailureInjector(fail_at_step=4)
+    try:
+        resilience.run_engine(ecfg, init, num_steps=6, ckpt=ck,
+                              ckpt_every=2, injector=inj, step_fn=step,
+                              stream=stream)
+    except SimulatedFailure:
+        pass
+    else:
+        raise AssertionError(f"{label}: no failure at step 4")
+    mem = last.pop("state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_r, state = resilience.resume_engine(ecfg, ck, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step_r != 4 or state.step != 4:
+        raise AssertionError(f"{label}: resumed at {step_r}, expected 4")
+    check_states_bitwise(f"{label} restored vs in memory", state, mem)
+    fin, diags = resilience.run_engine(
+        ecfg, state, num_steps=6, ckpt=ck, ckpt_every=2, injector=inj,
+        step_fn=step, stream=stream)
+    last_write_ms = ck.last_write_us / 1e3
+    ref, ref_diags = resilience.run_engine(ecfg, mem, num_steps=6,
+                                           step_fn=step)
+    recs = [m for m in stream.window(99) if "ckpt/bytes" in m.counters]
+    if [m.step for m in recs] != [1, 3, 5]:
+        raise AssertionError(f"{label}: checkpoints at steps "
+                             f"{[m.step for m in recs]}")
+    counts = [int(diags[-1][f"{sc.name}/count"]) for sc in ecfg.pic.species]
+    if counts != resident_counts(fin):
+        raise AssertionError(f"{label}: diag counts {counts} != resident + "
+                             f"pending {resident_counts(fin)}")
+    if exact:
+        check_states_bitwise(label, fin, ref)
+        check_diags_bitwise(label, ref_diags, diags)
+        again, _ = resilience.run_engine(
+            ecfg, engine.init_engine_state(ecfg, 0, device=dev),
+            num_steps=6, step_fn=step, collect=False)
+        check_states_bitwise(f"{label} second run", fin, again)
+        del again
+        extra = ("the restored state, every leaf, generator state and "
+                 "resumed diag equal, and equal to a second run")
+    else:
+        ionized = int(sum(m.counters["n_ionized"]
+                          for m in stream.window(99)))
+        check_pairs(f"{label} resumed", n0, counts, ionized)
+        for bf, br in zip(fin.species, ref.species):
+            check_equal(f"{label} alive", bf.alive, br.alive)
+        if [int(ref_diags[-1][f"{sc.name}/count"])
+                for sc in ecfg.pic.species] != counts:
+            raise AssertionError(f"{label}: counts differ from the run "
+                                 f"without the failure")
+        length = ecfg.local_nc() * ecfg.pic.dx
+        ex = ev = 0.0
+        for bf, br in zip(fin.species, ref.species):
+            ex = max(ex, periodic_err(bf.x, br.x, length))
+            ev = max(ev, max_err(bf.v, br.v)
+                     / (1.0 + float(br.v.abs().max())))
+        for rf, rr in zip(fin.rings, ref.rings):
+            for f in ("slots", "head", "count"):
+                check_equal(f"{label} ring {f}", getattr(rf, f),
+                            getattr(rr, f))
+        er = max_err(fin.rho, ref.rho)
+        rmax = float(ref.rho.abs().max())
+        if ex > 1e-5 * length or ev > 1e-4 or er > RHO_TOL * (1.0 + rmax):
+            raise AssertionError(f"{label}: x {ex}, v {ev} (of 1+max|v|), "
+                                 f"rho {er} (max {rmax})")
+        # the field grows from step to step (PERF.md §7): the e- kinetic
+        # energy of each step, the failed run's steps 0-3, then the
+        # resumed run's 4-5
+        ke = [f"{m.counters['e/ke']:.4g}" for m in stream.window(99)]
+        extra = (f"the restored state equal to the one in memory; after 2 "
+                 f"steps counts {counts}, masks and rings equal, ionized "
+                 f"{ionized}, max |dx| {ex:.3g}, max |dv|/(1+max|v|) "
+                 f"{ev:.3g}, max |drho| {er:.3g} (max {rmax:.4g}); "
+                 f"omega_p*dt {omega_p_dt(ecfg.pic):.4f}, e- KE a step "
+                 f"{ke}")
+    nums = dict(bytes=recs[0].counters["ckpt/bytes"],
+                fetch_ms=[m.counters["ckpt/fetch_us"] / 1e3 for m in recs],
+                write_ms=[m.counters["ckpt/write_us"] / 1e3
+                          for m in recs[1:]] + [last_write_ms],
+                restore_s=restore_s)
+    log(f"phase 10 (c) restart drill, {label}: failed at step 4, resumed "
+        f"from step {step_r}, on to 6: {extra}; checkpoint "
+        f"{nums['bytes'] / 2**30:.3f} GiB, fetch ms "
+        f"{[round(v, 1) for v in nums['fetch_ms']]}, write ms "
+        f"{[round(v, 1) for v in nums['write_ms']]}, restore "
+        f"{restore_s:.2f} s")
+    del ref, fin, state, mem
+    torch.cuda.empty_cache()
+    return ck, nums
+
+
+def elastic_restore(ecfg, d_new, ck, counters, dev, step=2):
+    """The §3.3 checkpoint of D 4 at ``step`` restored at D = ``d_new``
+    (step 2: with the field on, ω_p·dt = 2.024 at the §3.3 density, past
+    the leapfrog's limit of 2, so the field and the electrons' energy
+    grow ~2x a step, in the reference too (PERF.md §7), and by step 6 the
+    electrons cross the domains faster than the migration budget
+    allows): count and
+    charge of every species equal to the checkpoint's resident + pending
+    rows, pending empty, each ring holding exactly its dead slots; then 2
+    steps with their launches pinned, overflow counters 0 and exact pair
+    accounting. Returns the restore's seconds."""
+    import numpy as np
+
+    from repro_torch.distributed import engine
+    from repro_torch.runtime import resilience
+
+    _, flat, _ = ck.restore_flat(step)
+    want = []
+    for g, idxs in enumerate(engine._capacity_groups(ecfg)):
+        for j, i in enumerate(idxs):
+            a, w = flat[f"pic/species/{i}/alive"], flat[f"pic/species/{i}/w"]
+            pa = flat[f"pending/{g}/alive"][:, j]
+            pw = flat[f"pending/{g}/w"][:, j]
+            want.append((i, int(a.sum()) + int(pa.sum()),
+                         float((w.astype(np.float64) * a).sum()
+                               + (pw.astype(np.float64) * pa).sum())))
+    del flat
+    e2 = dataclasses.replace(ecfg, domains=d_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_r, st = resilience.resume_engine(e2, ck, step=step, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    label = f"elastic D 4 -> {d_new}"
+    if st.species[0].x.shape[0] != d_new:
+        raise AssertionError(f"{label}: {st.species[0].x.shape[0]} domains")
+    for i, n, q in sorted(want):
+        b = st.species[i]
+        got_n = int(b.alive.sum())
+        got_q = float((b.w.double() * b.alive).sum())
+        if got_n != n or got_q != q:
+            raise AssertionError(f"{label}: species {i} count {got_n} "
+                                 f"charge {got_q}, checkpoint {n} {q}")
+    for rg, g in zip(st.rings, st.groups):
+        check_equal(f"{label} ring count", rg.count,
+                    (~g.alive).sum(-1, dtype=torch.int32))
+    if any(bool(p.alive.any()) for p in st.pending):
+        raise AssertionError(f"{label}: pending not empty")
+    n0 = resident_counts(st)
+    step_fn = pinned(engine.make_engine_step(e2), e2, counters, label)
+    ionized = 0
+    for k in range(2):
+        st, diag = step_fn(st)
+        ionized += int(diag["n_ionized"])
+        for key, v in diag.items():
+            if key.rsplit("/", 1)[-1] in ("birth_overflow",
+                                          "migration_overflow",
+                                          "merge_dropped") and int(v):
+                raise AssertionError(f"{label} step {k}: {key} = {int(v)}")
+    check_pairs(label, n0, resident_counts(st), ionized)
+    log(f"phase 10 (d) {label} at step {step_r}: counts and charge exact "
+        f"({[n for _, n, _ in sorted(want)]}), rings consistent, pending "
+        f"empty; 2 steps on, overflow counters 0, ionized {ionized}; "
+        f"restore {secs:.2f} s")
+    del st
+    torch.cuda.empty_cache()
+    return secs
+
+
+def cross_device_restore(dev):
+    """A checkpoint written on the card restores on the CPU, and one
+    written on the CPU on the card (bench configuration, field on, D 4 x
+    async_n 2, after 2 steps): every leaf equal."""
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.configs.pic_bit1 import make_bench_config
+    from repro_torch.distributed import engine
+    from repro_torch.runtime import resilience
+
+    ecfg = engine_config(4, 2, dataclasses.replace(
+        make_bench_config(strategy="fused"), field_solve=True))
+    for src, dst in ((dev, torch.device("cpu")), (torch.device("cpu"), dev)):
+        state, _ = resilience.run_engine(
+            ecfg, engine.init_engine_state(ecfg, 0, device=src), num_steps=2,
+            collect=False)
+        ckdir = OBS_DIR / f"cross_{src.type}"
+        ck = Checkpointer(str(ckdir))
+        resilience.save_engine(ck, ecfg, 2, state, blocking=True)
+        _, out = resilience.resume_engine(ecfg, ck, device=dst)
+        if out.groups[0].x.device.type != dst.type:
+            raise AssertionError(f"restore {src} -> {dst} is on "
+                                 f"{out.groups[0].x.device}")
+        check_states_bitwise(f"cross-device {src.type} -> {dst.type}", out,
+                             state, gens=False)
+        log(f"phase 10 (f) a checkpoint written on {src.type} restores on "
+            f"{dst.type} with every leaf equal (bench config, D 4 x 2)")
+        shutil.rmtree(ckdir)
+    resume_training_on_card(dev)
+
+
+def resume_training_on_card(dev):
+    """``fault_tolerance.resume_training`` with parameters on the card
+    resumes on the card, bit-equal to the run without the failure
+    (``tests/test_torch_resilience.py::test_resume_training_stays_on_the_card``
+    here)."""
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.runtime import fault_tolerance as ft
+
+    def step_fn(params, opt, batch):
+        grad = params["w"] - batch
+        opt = {"m": 0.9 * opt["m"] + grad}
+        return {"w": params["w"] - 0.1 * opt["m"]}, opt, {
+            "loss": (grad * grad).sum()}
+
+    def batch_fn(step):
+        return torch.full((4096,), 1.0 + 0.01 * step, device=dev)
+
+    p0 = {"w": torch.zeros(4096, device=dev)}
+    o0 = {"m": torch.zeros(4096, device=dev)}
+    ckdir = OBS_DIR / "training"
+    ref, _, _ = ft.run_training(step_fn, batch_fn, p0, o0, num_steps=6,
+                                ckpt=Checkpointer(str(ckdir / "ref")),
+                                ckpt_every=100)
+    ck = Checkpointer(str(ckdir / "run"))
+    try:
+        ft.run_training(step_fn, batch_fn, p0, o0, num_steps=6, ckpt=ck,
+                        ckpt_every=2,
+                        injector=ft.FailureInjector(fail_at_step=3))
+    except ft.SimulatedFailure:
+        pass
+    else:
+        raise AssertionError("(f) resume_training: no failure at step 3")
+    ck.wait()
+    p, o, _ = ft.resume_training(step_fn, batch_fn, num_steps=6, ckpt=ck,
+                                 ckpt_every=2,
+                                 like={"params": p0, "opt": o0})
+    if p["w"].device.type != "cuda" or o["m"].device.type != "cuda":
+        raise AssertionError(f"(f) resume_training resumed on "
+                             f"{p['w'].device}, {o['m'].device}")
+    check_equal("(f) resume_training", p["w"], ref["w"])
+    log("phase 10 (f) resume_training with parameters on the card resumes "
+        "on the card, equal to the run without the failure")
+    shutil.rmtree(ckdir)
+
+
+PIC_RUN_BASE = ["--domains", "4", "--async-n", "4", "--field-solve",
+                "--strategy", "fused", "--steps", "4"]
+
+
+def pic_run_config():
+    """The EngineConfig ``pic_run`` builds from ``PIC_RUN_BASE``."""
+    from repro_torch.configs.pic_bit1 import (make_bench_config,
+                                              make_engine_config)
+
+    return make_engine_config(
+        dataclasses.replace(make_bench_config(strategy="fused"),
+                            field_solve=True), domains=4, async_n=4,
+        max_migration=8192, max_births=8192)
+
+
+def pic_run_lines(argv, counters, steps, label):
+    """``pic_run`` with ``argv`` in this process: its lines, and its
+    launches held to ``steps`` engine steps of its configuration plus the
+    initial state's deposit of the carried rho (one a domain)."""
+    import contextlib
+    import io
+
+    from repro_torch.distributed import engine
+    from repro_torch.kernels.deposit import deposit_form
+    from repro_torch.launch import pic_run
+
+    ecfg = pic_run_config()
+    per_step = engine_launches(ecfg)
+    init = ecfg.domains * len(engine._capacity_groups(ecfg))
+    form = deposit_form(ecfg.local_nc() + 1)
+    reset_launches(counters)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pic_run.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  pic_run {label}: {line[:240]}")
+    counts = launches(counters)
+    want = {n: steps * v + (init if n in ("deposit", f"deposit/{form}")
+                            else 0) for n, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"pic_run {label}: launches {counts}, expected "
+                             f"{want}")
+    return lines, counts
+
+
+def pic_run_drill(counters):
+    """The launcher's new flags: the restart drill (a failure at step 3,
+    checkpoints every 2, then the same command with --resume), then
+    --profile-dir and --metrics-jsonl once each and --autotune for 10
+    steps, so that its tuner retunes once."""
+    from repro_torch.obs import metrics, tracing
+
+    paths = {}
+    ck = OBS_DIR / "pic_run_ckpt"
+    drill = PIC_RUN_BASE + ["--ckpt-dir", str(ck), "--ckpt-every", "2",
+                            "--fail-at-step", "3"]
+    lines, paths["fail"] = pic_run_lines(drill, counters, 3, "fail")
+    if not lines[-1].startswith("simulated failure: injected failure at "
+                                "step 3"):
+        raise AssertionError(f"pic_run fail: {lines}")
+    lines, paths["resume"] = pic_run_lines(drill + ["--resume"], counters,
+                                           2, "resume")
+    if (lines[0] != f"resumed from checkpoint step 2 in {ck}"
+            or not re.fullmatch(LAUNCHER_LINES[1].replace("3 steps",
+                                                          "4 steps"),
+                                lines[2])
+            or not re.fullmatch(LAUNCHER_LINES[2], lines[3])):
+        raise AssertionError(f"pic_run resume: {lines}")
+    trace = OBS_DIR / "pic_run_trace"
+    lines, paths["profile"] = pic_run_lines(
+        PIC_RUN_BASE + ["--profile-dir", str(trace)], counters, 4, "profile")
+    files = list(trace.glob("*.trace.json"))
+    if (f"profiler trace written to {trace}" not in lines or len(files) != 1
+            or "engine/push/q3" not in tracing.trace_scope_names(
+                str(files[0]))):
+        raise AssertionError(f"pic_run --profile-dir: {lines}, {files}")
+    jsonl = OBS_DIR / "pic_run_metrics.jsonl"
+    lines, paths["metrics"] = pic_run_lines(
+        PIC_RUN_BASE + ["--metrics-jsonl", str(jsonl)], counters, 4,
+        "metrics")
+    header, steps = metrics.read_jsonl(str(jsonl))
+    errs = metrics.validate_stream([header] + steps)
+    if errs or len(steps) != 4 or not lines[0].startswith("metrics: "):
+        raise AssertionError(f"pic_run --metrics-jsonl: {errs}, {lines}")
+    # the tuner decides after a window of 8 steps (TunerPolicy.window):
+    # 10 steps make it retune once and run 2 steps on the new config,
+    # whose launches a step are the old one's (the budgets change no
+    # launch)
+    lines, paths["autotune"] = pic_run_lines(
+        PIC_RUN_BASE + ["--steps", "10", "--autotune"], counters, 10,
+        "autotune")
+    tuned = [ln.removeprefix("autotune: ") for ln in lines
+             if ln.startswith("autotune: ")]
+    if len(tuned) != 1 or not any(ln.startswith("metrics: ")
+                                  for ln in lines):
+        raise AssertionError(f"pic_run --autotune: no single retune: "
+                             f"{lines}")
+    base = pic_run_config()
+    changes = {}
+    for item in tuned[0].split(", "):
+        knob, change = item.split(": ")
+        changes[knob] = int(change.split(" -> ")[1])
+    if engine_launches(dataclasses.replace(base, **changes)) != \
+            engine_launches(base):
+        raise AssertionError(f"pic_run --autotune: {changes} changes the "
+                             f"launches a step")
+    log(f"phase 10 (g) pic_run: the restart drill (fail at 3, --resume from "
+        f"2), --profile-dir, --metrics-jsonl and --autotune (10 steps, "
+        f"retuned after 8: {tuned[0]}) ran, with their launches pinned")
+    return paths
+
+
+def timed_steps(step, state, n, record=None):
+    """``n`` steps of ``step`` from ``state``, each timed on the host from a
+    synchronized card to the end of its work (``record(k, diag, t0)``, if
+    given, waits for it and records the diag). Returns (state, ms a
+    step)."""
+    times = []
+    for k in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, diag = step(state)
+        if record is None:
+            torch.cuda.synchronize()
+        else:
+            record(k, diag, t0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, times
+
+
+# the windows of the overhead measurement: P plain, T under the profiler,
+# M with the metrics stream; each order reversed after it, so that a drift
+# in the host's speed cancels
+OVERHEAD_ORDER = "PTMMTP" * 2
+OVERHEAD_WINDOW = 2
+
+
+def quartiles(xs):
+    q = statistics.quantiles(xs, n=4)
+    return [round(q[0], 3), round(statistics.median(xs), 3), round(q[2], 3)]
+
+
+def overhead_windows(counters, dev):
+    """The host's ms a step of the engine at D 4 x async_n 4 plain, under
+    ``trace_session`` and with the metrics stream, in windows of
+    ``OVERHEAD_WINDOW`` steps alternating as ``OVERHEAD_ORDER`` on one
+    state. The configuration is the paper's §3.3 test (field solve off,
+    ionization on), whose work holds from step to step; with the field on
+    the state grows (PERF.md §7). The metrics toggle keeps the state's
+    layout (``retarget_state`` is the identity), so both step functions
+    take one state. Each trace gives the device busy ms a step. Returns
+    the numbers."""
+    from repro_torch.configs.pic_bit1 import make_config
+    from repro_torch.distributed import engine
+    from repro_torch.obs import metrics, tracing
+
+    plain = engine_config(4, 4, make_config(mover_strategy="fused"))
+    on = dataclasses.replace(plain, metrics=True)
+    steps = {"P": pinned(engine.make_engine_step(plain), plain, counters,
+                         "(a) overhead plain"),
+             "M": pinned(engine.make_engine_step(on), on, counters,
+                         "(a) overhead metrics")}
+    steps["T"] = steps["P"]
+    cfgs = {"P": plain, "T": plain, "M": on}
+    state, _ = timed_steps(steps["P"], engine.init_engine_state(
+        plain, 0, device=dev), 1)
+    stream = metrics.MetricsStream()
+
+    def record(k, diag, t0):
+        torch.cuda.synchronize()
+        stream.record(metrics.host_values(diag),
+                      wall_us=(time.perf_counter() - t0) * 1e6)
+
+    ms = {m: [] for m in "PTM"}
+    busy, export, mib = [], [], []
+    cur = "P"
+    for w, mode in enumerate(OVERHEAD_ORDER):
+        state = engine.retarget_state(cfgs[cur], cfgs[mode], state)
+        cur = mode
+        if mode == "T":
+            tdir = OBS_DIR / f"overhead_trace{w}"
+            t0 = time.perf_counter()
+            with tracing.trace_session(str(tdir)):
+                state, t = timed_steps(steps["T"], state, OVERHEAD_WINDOW)
+            export.append(time.perf_counter() - t0 - sum(t) / 1e3)
+            files = list(tdir.glob("*.trace.json"))
+            if len(files) != 1:
+                raise AssertionError(f"(a) overhead trace files {files}")
+            mib.append(files[0].stat().st_size / 2**20)
+            busy.append(busy_and_overlap(trace_intervals(files[0]))[0]
+                        / 1e3 / OVERHEAD_WINDOW)
+            shutil.rmtree(tdir)
+        else:
+            state, t = timed_steps(steps[mode], state, OVERHEAD_WINDOW,
+                                   record if mode == "M" else None)
+        ms[mode] += t
+    if len(stream.window(999)) != len(ms["M"]):
+        raise AssertionError("(a) overhead: metrics records missing")
+    del state
+    q = {m: quartiles(v) for m, v in ms.items()}
+    out = dict(plain_ms=q["P"][1], traced_ms=q["T"][1],
+               metrics_ms=q["M"][1], quartiles=q,
+               busy_ms=statistics.median(busy),
+               export_s=statistics.median(export),
+               mib=statistics.median(mib))
+    log(f"phase 10 (a) overhead, §3.3 field off D 4 x 4, windows of "
+        f"{OVERHEAD_WINDOW} steps in the order {OVERHEAD_ORDER}: host "
+        f"ms/step plain {[round(t, 3) for t in ms['P']]}, under the "
+        f"profiler {[round(t, 3) for t in ms['T']]}, with the metrics "
+        f"stream {[round(t, 3) for t in ms['M']]}; quartiles (25/50/75 %) "
+        f"plain {q['P']}, profiler {q['T']}, metrics {q['M']}; device busy "
+        f"a traced step {[round(b, 3) for b in busy]} ms; traces "
+        f"{[round(m, 1) for m in mib]} MiB exported in "
+        f"{[round(e, 2) for e in export]} s")
+    return out
+
+
+def obs_phase(dev):
+    """Phase 10: the engine's observability and resilience at the §3.3
+    configuration (field on, ionization, D 4 x async_n 4) and at its
+    bitwise configuration; returns (launches summed over its paths,
+    numbers)."""
+    from repro_torch.distributed import engine
+    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+    from repro_torch.obs import metrics, tracing
+    from repro_torch.obs.autotune import AutoTuner, TunerPolicy
+
+    t_start = time.perf_counter()
+    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
+                "mover_push": mover.mover_push, "deposit": deposit.deposit,
+                "ta_kick": collide.ta_kick}
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    full = engine_config(4, 4)
+    exact = engine_config(4, 4, bitwise_pic())
+    paths, numbers = {}, {}
+
+    # (a) tracing: two steps under trace_session; every scope the steps
+    # entered is a range of the trace, and the card's work is in it
+    reset_launches(counters)
+    step = pinned(engine.make_engine_step(full), full, counters, "(a)")
+    state, _ = timed_steps(step, engine.init_engine_state(
+        full, 0, device=dev), 1)
+    tdir = OBS_DIR / "trace"
+    with tracing.capture_scopes() as seen:
+        with tracing.trace_session(str(tdir)):
+            state, _ = timed_steps(step, state, 2)
+    files = list(tdir.glob("*.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"(a) trace files {files}")
+    names = tracing.trace_scope_names(str(files[0]))
+    missing = sorted((set(seen) | set(STEP_SCOPES)) - names)
+    device_events = len(trace_intervals(files[0]))
+    if missing or not device_events:
+        raise AssertionError(f"(a) the trace lacks {missing} ("
+                             f"{device_events} device events)")
+    mib = files[0].stat().st_size / 2**20
+    log(f"phase 10 (a) tracing: 2 steps under trace_session hold all "
+        f"{len(set(seen))} scope names entered ({len(names)} ranges), "
+        f"{device_events} device events, {mib:.1f} MiB")
+    shutil.rmtree(tdir)
+    del state
+    numbers["overhead"] = overhead_windows(counters, dev)
+    paths["trace"] = launches(counters)
+
+    # (b) metrics: five steps streamed to JSONL and validated; the
+    # stream's own cost; the toggle bitwise
+    reset_launches(counters)
+    mcfg = dataclasses.replace(full, metrics=True)
+    step = pinned(engine.make_engine_step(mcfg), mcfg, counters, "(b) on")
+    jsonl = OBS_DIR / "metrics.jsonl"
+    cost = []              # the stream's own host ms once the step is done
+    with metrics.MetricsStream(jsonl_path=str(jsonl),
+                               config={"domains": 4, "async_n": 4}) as st:
+        def record(k, diag, t0):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st.record(metrics.host_values(diag), wall_us=(t1 - t0) * 1e6,
+                      step=k)
+            cost.append((time.perf_counter() - t1) * 1e3)
+
+        state, on = timed_steps(step, engine.init_engine_state(
+            mcfg, 0, device=dev), 5, record)
+    header, recs = metrics.read_jsonl(str(jsonl))
+    errs = metrics.validate_stream([header] + recs)
+    if errs or len(recs) != 5 or not all(
+            f"{sc.name}/{k}" in r["counters"] for r in recs
+            for sc in full.pic.species for k in ("ring_free",
+                                                 "pending_rows")):
+        raise AssertionError(f"(b) metrics stream: {errs[:5]}, "
+                             f"{len(recs)} records")
+    del state
+    outs = {}
+    for flag in (False, True):
+        c = dataclasses.replace(exact, metrics=flag)
+        stp = pinned(engine.make_engine_step(c), c, counters, "(b) exact")
+        s = engine.init_engine_state(c, 0, device=dev)
+        for _ in range(3):
+            s, d = stp(s)
+        outs[flag] = (s, metrics.host_values(d))
+    check_states_bitwise("(b) metrics on vs off", outs[False][0],
+                         outs[True][0])
+    shared = outs[False][1]
+    check_diags_bitwise("(b) metrics on vs off", [shared],
+                        [{k: outs[True][1][k] for k in shared}])
+    del outs, s
+    torch.cuda.empty_cache()
+    paths["metrics"] = launches(counters)
+    numbers["metrics"] = dict(record_ms=statistics.median(cost))
+    log(f"phase 10 (b) metrics: 5 records valid "
+        f"({jsonl.stat().st_size} bytes); host ms/step with the stream "
+        f"{[round(t, 3) for t in on]}; the stream's own ms a step, the "
+        f"step done "
+        f"{[round(t, 3) for t in cost]}"
+        f"; the bitwise configuration (field and ionization off) equal in "
+        f"every leaf and shared diag with metrics on and off after 3 steps")
+
+    # (c) the restart drill, bitwise and at §3.3
+    reset_launches(counters)
+    ck_exact, numbers["ckpt_exact"] = restart_drill(
+        exact, "bitwise configuration D 4 x 4", True, counters, dev,
+        OBS_DIR / "ckpt_exact")
+    shutil.rmtree(ck_exact.dir)
+    ck, numbers["ckpt"] = restart_drill(
+        full, "§3.3 field + ionization D 4 x 4", False, counters, dev,
+        OBS_DIR / "ckpt")
+    paths["restart"] = launches(counters)
+
+    # (d) elastic restores of the §3.3 checkpoint
+    reset_launches(counters)
+    numbers["elastic_s"] = {d: elastic_restore(full, d, ck, counters, dev)
+                            for d in (2, 1)}
+    paths["elastic"] = launches(counters)
+    shutil.rmtree(ck.dir)
+
+    # (e) the auto-tuner from a migration budget that overflows
+    reset_launches(counters)
+    tuner = AutoTuner(dataclasses.replace(full, max_migration=4),
+                      policy=TunerPolicy(window=2))
+    state = engine.init_engine_state(tuner.ecfg, 0, device=dev)
+    n0 = resident_counts(state)
+    ionized = 0
+    for k in range(8):
+        per_step = engine_launches(tuner.ecfg)
+        before = launches(counters)
+        state, diag = tuner.run_step(state)
+        after = launches(counters)
+        delta = {n: after[n] - before[n] for n in after}
+        if delta != per_step:
+            raise AssertionError(f"(e) step {k}: launches {delta}, "
+                                 f"expected {per_step}")
+        ionized += int(diag["n_ionized"])
+        check_pairs(f"(e) step {k}", n0, [int(diag[f"{sc.name}/count"])
+                                          for sc in full.pic.species],
+                    ionized)
+        if resident_counts(state) != [int(diag[f"{sc.name}/count"])
+                                      for sc in full.pic.species]:
+            raise AssertionError(f"(e) step {k}: resident counts moved")
+    if tuner.retunes < 1:
+        raise AssertionError(f"(e) no retune: {tuner.log}")
+    overflow = sum(m.counters.get(f"{sc.name}/migration_overflow", 0.0)
+                   for m in tuner.stream.window(99)
+                   for sc in full.pic.species)
+    numbers["retunes"] = tuner.retunes
+    paths["autotune"] = launches(counters)
+    log(f"phase 10 (e) auto-tuner: {tuner.retunes} retunes in 8 steps "
+        f"({tuner.log}), migration overflow {overflow:.0f} rows in all, "
+        f"pairs exact at every step (ionized {ionized}), launches pinned "
+        f"for the config in force")
+    del state
+    torch.cuda.empty_cache()
+
+    # (f) cross-device restore, (g) the launcher's command lines
+    cross_device_restore(dev)
+    paths.update({f"pic_run_{k}": v
+                  for k, v in pic_run_drill(counters).items()})
+    counts = {name: sum(p[name] for p in paths.values())
+              for name in paths["trace"]}
+    numbers["seconds"] = time.perf_counter() - t_start
+    log(f"phase 10: {numbers['seconds']:.1f} s, launches summed over its "
+        f"paths {counts}")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    return counts, numbers
+
+
 # ---------------------------------------------------------------- phase 7 --
 
 def rel_err(got, want) -> float:
@@ -2031,8 +2882,9 @@ def main() -> int:
     card_vs_cpu_phase(dev)
     collision_card_vs_cpu_phase(dev)
     engine_counts, eng = engine_phase(dev)
+    obs_counts, obs = obs_phase(dev)
     for k in ("fused_push_deposit", "mover_push", "deposit", "ta_kick"):
-        counts[k] += engine_counts[k]
+        counts[k] += engine_counts[k] + obs_counts[k]
     kernels["flash_attention"] = flash_phase(dev)
     counts["flash_attention"], lm = lm_serve_phase(dev)
     lm_card_vs_cpu_phase(dev)
@@ -2047,11 +2899,26 @@ def main() -> int:
         log(f"engine {label}: host {r['host_ms']:.3f} ms/step, device busy "
             f"{r['busy_ms']} ms, cross-stream overlap {r['overlap_ms']} ms")
     log(f"engine phase: {eng['seconds']:.1f} s")
+    ov, ckn = obs["overhead"], obs["ckpt"]
+    log(f"observability and resilience (D 4 x 4): host ms/step, quartiles "
+        f"25/50/75 %, §3.3 field off, plain {ov['quartiles']['P']}, under "
+        f"the profiler {ov['quartiles']['T']} (device busy "
+        f"{ov['busy_ms']:.3f} ms a step; trace {ov['mib']:.1f} MiB, "
+        f"exported in {ov['export_s']:.2f} s), with the metrics stream "
+        f"{ov['quartiles']['M']}; the stream's own "
+        f"{obs['metrics']['record_ms']:.3f}; checkpoint "
+        f"{ckn['bytes'] / 2**30:.3f} GiB, fetch ms "
+        f"{[round(v, 1) for v in ckn['fetch_ms']]}, write ms "
+        f"{[round(v, 1) for v in ckn['write_ms']]}, typed restore "
+        f"{ckn['restore_s']:.2f} s, elastic restores "
+        f"{ {d: round(v, 2) for d, v in obs['elastic_s'].items()} } s; "
+        f"retunes {obs['retunes']}; phase {obs['seconds']:.1f} s")
     log(f"LM {LM_ARCH}: prefill 8 x 4096 {lm['prefill_ms']:.3f} ms "
         f"({lm['prefill_tok_s']:.0f} tok/s), decode {lm['decode_ms']:.3f} "
         f"ms/step at batch 4 ({lm['decode_tok_s']:.1f} tok/s), decode vs "
         f"prefill rel {lm['decode_vs_prefill_rel']:.4g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(smi)
     rows = []
     for k, r in kernels.items():
         rows.append({key: r[key] for key in (

@@ -11,7 +11,7 @@ Strategies, as in the reference:
 serving ``unified`` and ``fused``) and ``push_fused`` run the fused kernel,
 ``push_explicit`` the mover kernel; on CPU tensors each takes the kernel's
 plain version (``kernels/ops.py``). The kernels wrap a periodic position as
-x - floor(x/L)*L and park absorbed particles at L*(1-1e-7), as the
+x - floor(x * float32(1/L)) * L (jitted JAX's rounding of x/L) and park absorbed particles at L*(1-1e-7), as the
 reference's kernels do; ``apply_boundary`` keeps the reference's mod and
 nextafter. Every strategy returns a ``PushResult`` with the wall-hit masks
 of this push, which the wall-emission source consumes.

@@ -61,7 +61,7 @@ extern "C" int deposit(const void* x, const void* q, void* rho, void* pair,
                        long long n, float x0, float inv_dx, int nc,
                        void* stream) {
   constexpr int kThreads = 256;
-  const Grid g{x0, inv_dx, 0.0f, 0.0f, nc};
+  const Grid g{x0, inv_dx, 0.0f, 0.0f, 0.0f, nc};
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   const cudaStream_t s = (cudaStream_t)stream;
   deposit_kernel<<<blocks, kThreads, 0, s>>>(
@@ -79,7 +79,7 @@ extern "C" int deposit(const void* x, const void* q, void* rho, void* pair,
 extern "C" int deposit_block(const void* x, const void* q, void* rows,
                              void* rho, long long n, float x0, float inv_dx,
                              int nc, int n_blocks, void* stream) {
-  const Grid g{x0, inv_dx, 0.0f, 0.0f, nc};
+  const Grid g{x0, inv_dx, 0.0f, 0.0f, 0.0f, nc};
   return (int)launch_blocks(deposit_block_kernel, n_blocks,
                             (cudaStream_t)stream, (const float*)rows,
                             (float*)rho, nc + 1, (const float*)x,

@@ -49,11 +49,12 @@ __global__ void mover_push_kernel(const float* __restrict__ x,
 extern "C" int mover_push(const void* x, const void* v, const void* alive,
                           const void* e, void* xo, void* vo, void* ao,
                           void* hlo, void* hro, long long n, float x0,
-                          float inv_dx, int nc, float length, float clamp_hi,
+                          float inv_dx, int nc, float length,
+                          float inv_length, float clamp_hi,
                           float qm_dt, float dt, float bx, float by, float bz,
                           int boundary, void* stream) {
   constexpr int kThreads = 256;
-  const Grid g{x0, inv_dx, length, clamp_hi, nc};
+  const Grid g{x0, inv_dx, length, inv_length, clamp_hi, nc};
   const bool rotate = bx != 0.0f || by != 0.0f || bz != 0.0f;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
 #define REPRO_ARGS                                                        \

@@ -24,13 +24,15 @@
 
 enum Boundary : int { kPeriodic = 0, kAbsorb = 1, kOpen = 2 };
 
-// Geometry of one 1D domain. inv_dx = float32(1 / float32(dx)) and
+// Geometry of one 1D domain. inv_dx = float32(1 / float32(dx)),
+// inv_length = float32(1 / float32(length)) and
 // clamp_hi = float32(length) * float32(1 - 1e-7) are computed once by the
 // host, where the plain version computes them too.
 struct Grid {
   float x0;
   float inv_dx;
   float length;
+  float inv_length;
   float clamp_hi;
   int nc;
 };
@@ -87,7 +89,9 @@ __device__ __forceinline__ void push_one(float& x, float& vx, float& vy,
   hl = false;
   hr = false;
   if (BOUNDARY == kPeriodic) {
-    xn = xn - floorf(xn / g.length) * g.length;
+    // x / length as jitted JAX rounds it (see cic): a multiply by the
+    // float32 reciprocal
+    xn = xn - floorf(xn * g.inv_length) * g.length;
   } else if (BOUNDARY == kAbsorb) {
     hl = alive && (xn < 0.0f);
     hr = alive && (xn >= g.length);

@@ -40,8 +40,10 @@ scheduling             ``rebalance_skew`` under      trigger reads one (G, D)
 MPI_Allgather (field)  eliminated: edge-node         edge-node copies and
                        ``ppermute`` + scalar         (D,) scalar vectors,
                        gathers (``halo.py``)         counted (``halo.py``)
-Nsight phase ranges    ``repro.obs.tracing`` scopes  ``torch.profiler.
-                                                     record_function`` with
+Nsight phase ranges    ``repro.obs.tracing`` scopes  ``obs.tracing``
+                                                     ``phase_scope``: a
+                                                     ``record_function``
+                                                     and an NVTX range with
                                                      the same scope names;
                                                      ``perf.phase_breakdown``
 =====================  ============================  ========================

@@ -29,8 +29,9 @@ The phase order is the reference's: ingest (flush pending, periodic and
 skew-triggered rebalance, ``cell_order``) -> halo field -> per queue: fused
 push (``boundary="open"``, carried rho) -> collide -> MC ionization ->
 migrate + SEE -> deferred merge -> diagnostics. ``make_engine_step(upto=)``
-builds the probes of ``PHASES``; each phase and queue stage runs inside a
-``torch.profiler.record_function`` range with the reference's scope name.
+builds the probes of ``PHASES``; each phase and queue stage runs inside an
+``obs.tracing.phase_scope`` range (``record_function`` plus NVTX) with the
+reference's scope name.
 
 No host synchronisation inside a step: packing is done by prefix sums
 (``particles.nonzero_static``), never ``torch.nonzero``, and no ``.item()``
@@ -54,11 +55,21 @@ Divergences from the reference, kept on purpose:
   writes the pending rows into the input's buffers in place. The probes
   (``upto`` other than "full") and ``donate=False`` copy first.
 * Random numbers come from one ``torch.Generator`` per domain; ``draws=``
-  takes the reference's arrays instead (see ``step``).
+  takes the reference's arrays instead (see ``step``). The state keeps the
+  reference's per-domain key, ``EngineState.key`` ((D, 2) uint32, the
+  ``pic/key`` of a checkpoint), as a host array the step never reads: the
+  reference's own key when the state came from its arrays, else each
+  domain's generator seed in two words (``_domain_keys``).
 
-``with_params``, ``retarget_state``, ``state_shape``/``state_shardings``,
-``resplit_host`` and ``elastic_state`` raise ``NotImplementedError``; they
-belong to later items of ``ROADMAP.md`` (3, 4, 5).
+The checkpoint side (``runtime/resilience.py`` drives it): ``state_tree``
+lays a state out as the reference's ``EngineState`` pytree, so a checkpoint
+holds the reference's keys, shapes and dtypes; ``state_shape`` and
+``state_shardings`` give the ``like`` tree and the device of each leaf of a
+typed restore, ``state_from_tree`` rebuilds the state; ``resplit_host`` and
+``elastic_state`` are the elastic restore onto another domain count;
+``retarget_state`` carries a state across a knob change of the auto-tuner.
+``make_engine_step(with_params=True)`` raises ``NotImplementedError``: it
+belongs to ``ROADMAP.md`` queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -68,7 +79,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import boundaries, collisions, mover
 from repro_torch.core.grid import Grid1D, deposit_stacked, deposit_windowed
@@ -83,6 +93,7 @@ from repro_torch.core.pic import PICConfig, PICState
 from repro_torch.core.pic import _carries_rho as pic_carries_rho
 from repro_torch.device import resolve_device
 from repro_torch.distributed import halo
+from repro_torch.obs.tracing import phase_scope
 
 # cumulative phase checkpoints of the probes (see perf.py): a step built
 # with upto=<phase> runs the pipeline through that phase and returns
@@ -185,13 +196,15 @@ class PendingArrivals:
 class EngineState:
     """The engine's state. ``groups`` holds one (D, S, cap_l) stack per
     capacity group (``group_species`` its species indices), ``gens`` one
-    generator per domain, ``rho`` the carried (D, ncl + 1) charge (None
+    generator per domain, ``key`` the reference's (D, 2) uint32 key on the
+    host (read by no step), ``rho`` the carried (D, ncl + 1) charge (None
     unless carried), ``rings``/``pending`` one entry per group, batched
     over (D, S) (empty in the legacy mode)."""
 
     groups: tuple[StackedSpecies, ...]
     group_species: tuple[tuple[int, ...], ...]
     gens: tuple[torch.Generator, ...]
+    key: np.ndarray
     step: int
     rho: torch.Tensor | None
     rings: tuple[FreeSlotRing, ...]
@@ -587,12 +600,12 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
         def pack_state(rho, pend):
             return EngineState(groups=tuple(sts),
                                group_species=tuple(groups), gens=state.gens,
-                               step=step_i + 1, rho=rho, rings=tuple(rings),
-                               pending=tuple(pend))
+                               key=state.key, step=step_i + 1, rho=rho,
+                               rings=tuple(rings), pending=tuple(pend))
 
         # ---- ingest: land last step's arrivals and births in their
         #      pre-claimed slots, then compact the domains that are due ----
-        with record_function("engine/ingest"):
+        with phase_scope("engine/ingest"):
             due = [None] * len(groups)
             for g in range(len(groups)):
                 if use_ring:
@@ -643,7 +656,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
             return pack_state(state.rho, empty_pend), aux
 
         # ---- field: halo exchange of edge nodes and scalars only ----
-        with record_function("engine/field"):
+        with phase_scope("engine/field"):
             if not cfg.field_solve:
                 e = torch.zeros(d, ngl, dtype=torch.float32, device=dev)
             else:
@@ -663,7 +676,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
         # ---- sources: the electron density of each domain (halo-summed
         #      at the shared nodes) and the collision densities ----
         ne = coll_dens = None
-        with record_function("engine/sources"):
+        with phase_scope("engine/sources"):
             if ion is not None:
                 ge, je = loc[ion[1]]
                 st = sts[ge]
@@ -672,7 +685,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                                      st.w[r, je] * st.alive[r, je])
                     for r in range(d)]))
         if coll:
-            with record_function("engine/collide_setup"):
+            with phase_scope("engine/collide_setup"):
                 coll_dens = [{
                     i: collisions.cell_density(grid_local, SpeciesBuffer(
                         x=sts[loc[i][0]].x[r, loc[i][1]],
@@ -721,7 +734,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                     with on(r, k):
                         wait(ready)
                         q = _queue_slice(st, n_q, k)
-                        with record_function(f"engine/push/q{k}"):
+                        with phase_scope(f"engine/push/q{k}"):
                             out, _, _, pdiag, rho_k = mover.push_stacked(
                                 q, e[r], grid_local, qm, dts, b=cfg.b_field,
                                 boundary="open", gather_mode=cfg.gather_mode,
@@ -755,7 +768,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                         g_coll = [cc for cc in coll
                                   if loc[cc.species][0] == g]
                         if g_coll:
-                            with record_function(f"engine/collide/q{k}"):
+                            with phase_scope(f"engine/collide/q{k}"):
                                 rows_c = collisions.involved_species(g_coll)
                                 cbufs = {i: SpeciesBuffer(
                                     x=out.x[idxs.index(i)],
@@ -787,7 +800,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                         #      (the kills wait for the ring) ----
                         pack = None
                         if ion is not None and ion[0] in idxs:
-                            with record_function(f"engine/ionize/q{k}"):
+                            with phase_scope(f"engine/ionize/q{k}"):
                                 jn = idxs.index(ion[0])
                                 qn = SpeciesBuffer(
                                     x=out.x[jn], v=out.v[jn], w=out.w[jn],
@@ -799,7 +812,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
 
                         # ---- migration packs (the crossers are outside
                         #      the slab, so no ionized neutral is one) ----
-                        with record_function(f"engine/migrate/q{k}"):
+                        with phase_scope(f"engine/migrate/q{k}"):
                             (kq, pack_l, pack_r, lv_x, lv_w, free_idx,
                              free_ok, abs_l, abs_r, dmig) = _exchange_queue(
                                 out, l_local, m_q, cfg.boundary, r == 0,
@@ -830,7 +843,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                         for pi, (p_, t_) in enumerate(see_pairs):
                             if p_ not in idxs:
                                 continue
-                            with record_function(f"engine/see/q{k}"):
+                            with phase_scope(f"engine/see/q{k}"):
                                 jp = idxs.index(p_)
                                 emit, ex, ev, ew = \
                                     boundaries.emission_candidates(
@@ -876,7 +889,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
             return pack_state(rho_out, empty_pend), e
 
         pend_out = list(empty_pend)
-        with record_function("engine/merge"):
+        with phase_scope("engine/merge"):
             for g, idxs in enumerate(groups):
                 charges = gconsts[g][2]
                 cap_g = group_caps[g]
@@ -928,7 +941,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
             return pack_state(rho_out, pend_out), e
 
         # ---- diagnostics over the resident rows plus the pending ones ----
-        with record_function("engine/diag"):
+        with phase_scope("engine/diag"):
             diag: dict = {}
             for key, v in contrib:
                 diag[key] = diag[key] + v if key in diag else v
@@ -1076,10 +1089,26 @@ def _engine_extras(ecfg: EngineConfig, sts, device):
     return tuple(rings), tuple(pending)
 
 
-def _domain_gens(seed: int, d: int, device) -> tuple[torch.Generator, ...]:
-    """One generator per domain, domain r seeded from (seed, r)."""
-    return tuple(torch.Generator(device=device).manual_seed(
-        seed * 1_000_003 + r) for r in range(d))
+def _domain_keys(seed: int, d: int) -> np.ndarray:
+    """(D, 2) uint32: domain r's generator seed, (seed, r) folded into 64
+    bits, as its high and low words."""
+    s = np.array([(seed * 1_000_003 + r) % 2**64 for r in range(d)],
+                 np.uint64)
+    return np.stack([s >> np.uint64(32), s & np.uint64(0xFFFFFFFF)],
+                    -1).astype(np.uint32)
+
+
+def _key_seed(row) -> int:
+    """The 64-bit integer of a (2,) uint32 key row."""
+    hi, lo = (int(v) for v in np.asarray(row, np.uint32))
+    return (hi << 32) | lo
+
+
+def _gens_from_key(key: np.ndarray, device) -> tuple[torch.Generator, ...]:
+    """One generator per domain, domain r seeded with the 64-bit integer of
+    key row r: a port key gives each domain its initial generator back."""
+    return tuple(torch.Generator(device=device).manual_seed(_key_seed(row))
+                 for row in key)
 
 
 def _carried_rho(ecfg: EngineConfig, sts, device) -> torch.Tensor:
@@ -1099,11 +1128,16 @@ def _carried_rho(ecfg: EngineConfig, sts, device) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _assemble(ecfg: EngineConfig, species, gens, step: int, rho, device,
-              rings=None, pending=None) -> EngineState:
+def _assemble(ecfg: EngineConfig, species, key, step: int, rho, device,
+              rings=None, pending=None, gens=None) -> EngineState:
     """An EngineState from per-species (D, cap_l) buffers: groups stacked,
-    rings rebuilt from the alive masks and pending empty unless given."""
+    rings rebuilt from the alive masks and pending empty unless given,
+    generators seeded from ``key`` unless given."""
     groups = _capacity_groups(ecfg)
+    key = np.asarray(key, np.uint32)
+    if key.shape != (ecfg.num_domains(), 2):
+        raise ValueError(f"key has shape {key.shape}, expected "
+                         f"({ecfg.num_domains()}, 2)")
     sts = tuple(StackedSpecies(
         x=torch.stack([species[i].x for i in idxs], 1).contiguous(),
         v=torch.stack([species[i].v for i in idxs], 1).contiguous(),
@@ -1116,9 +1150,11 @@ def _assemble(ecfg: EngineConfig, species, gens, step: int, rho, device,
         rings, pending = (), ()
     elif rings is None:
         rings, pending = _engine_extras(ecfg, sts, device)
+    if gens is None:
+        gens = _gens_from_key(key, device)
     return EngineState(groups=sts, group_species=tuple(groups), gens=gens,
-                       step=int(step), rho=rho, rings=tuple(rings),
-                       pending=tuple(pending))
+                       key=key.copy(), step=int(step), rho=rho,
+                       rings=tuple(rings), pending=tuple(pending))
 
 
 def init_engine_state(ecfg: EngineConfig, seed: int = 0,
@@ -1129,7 +1165,8 @@ def init_engine_state(ecfg: EngineConfig, seed: int = 0,
     cfg = ecfg.pic
     d = ecfg.num_domains()
     l_local = ecfg.local_nc() * cfg.dx
-    gens = _domain_gens(seed, d, dev)
+    key = _domain_keys(seed, d)
+    gens = _gens_from_key(key, dev)
     species = []
     for sc in cfg.species:
         bufs = [init_uniform(gens[r], ecfg.local_cap(sc), sc.n_init // d,
@@ -1138,7 +1175,7 @@ def init_engine_state(ecfg: EngineConfig, seed: int = 0,
         species.append(SpeciesBuffer(*(torch.stack([getattr(b, f)
                                                     for b in bufs])
                                        for f in ("x", "v", "w", "alive"))))
-    return _assemble(ecfg, species, gens, 0, None, dev)
+    return _assemble(ecfg, species, key, 0, None, dev, gens=gens)
 
 
 def attach_engine_state(ecfg: EngineConfig, state: PICState,
@@ -1148,21 +1185,27 @@ def attach_engine_state(ecfg: EngineConfig, state: PICState,
     single-domain state): rings rebuilt from the alive masks, no in-flight
     arrivals, one generator per domain seeded from ``seed``."""
     dev = state.species[0].x.device
-    gens = _domain_gens(seed, ecfg.num_domains(), dev)
-    return _assemble(ecfg, state.species, gens, state.step, state.rho, dev)
+    return _assemble(ecfg, state.species,
+                     _domain_keys(seed, ecfg.num_domains()), state.step,
+                     state.rho, dev)
 
 
 def state_from_numpy(ecfg: EngineConfig, arrays: dict, seed: int = 0,
                      device="cuda") -> EngineState:
-    """The port's state from numpy arrays, e.g. the reference's EngineState
-    exported with ``np.asarray``: ``arrays`` holds ``species`` (per species
-    a mapping of (D, cap_l) ``x``/``v``/``w``/``alive``), ``rings`` and
-    ``pending`` (per capacity group, the reference's (D, S, ...) leaves),
-    ``rho`` ((D, ncl + 1) or None) and ``step``. A JAX key cannot become a
-    generator: the domains get fresh ones seeded from ``seed``."""
+    """The port's state from numpy arrays (or tensors), e.g. the reference's
+    EngineState exported with ``np.asarray``: ``arrays`` holds ``species``
+    (per species a mapping of (D, cap_l) ``x``/``v``/``w``/``alive``),
+    ``rings`` and ``pending`` (per capacity group, the reference's
+    (D, S, ...) leaves), ``rho`` ((D, ncl + 1) or None), ``step`` and
+    optionally ``key`` ((D, 2) uint32). The state keeps the key, and each
+    domain's generator is seeded with its key row as one 64-bit integer (a
+    port key holds the seeds themselves); without a key, the domains are
+    seeded from ``seed`` as ``init_engine_state`` seeds them."""
     dev = resolve_device(device)
 
     def tt(a, dtype):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=dtype, copy=True)
         return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
 
     f32, i32 = torch.float32, torch.int32
@@ -1186,8 +1229,10 @@ def state_from_numpy(ecfg: EngineConfig, arrays: dict, seed: int = 0,
                    for a in arrays["pending"]]
     rho = arrays.get("rho")
     rho = None if rho is None else tt(rho, f32)
-    gens = _domain_gens(seed, ecfg.num_domains(), dev)
-    return _assemble(ecfg, species, gens, int(arrays["step"]), rho, dev,
+    key = arrays.get("key")
+    key = (_domain_keys(seed, ecfg.num_domains()) if key is None
+           else np.asarray(key))
+    return _assemble(ecfg, species, key, int(arrays["step"]), rho, dev,
                      rings, pending)
 
 
@@ -1199,6 +1244,7 @@ def to_numpy(state: EngineState) -> dict:
 
     return {
         "step": state.step,
+        "key": state.key.copy(),
         "rho": None if state.rho is None else a(state.rho),
         "species": [{f: a(getattr(b, f)) for f in ("x", "v", "w", "alive")}
                     for b in state.species],
@@ -1209,27 +1255,269 @@ def to_numpy(state: EngineState) -> dict:
                     for p in state.pending]}
 
 
-def retarget_state(*args, **kwargs):
-    raise NotImplementedError("retarget_state (the auto-tuner's knob "
-                              "change) is not ported yet: "
-                              + _ROADMAP.format(3))
+# ------------------------------------------------------- checkpoint/restore
+#
+# A checkpoint holds the reference's EngineState leaves under the
+# reference's key paths (``pic/species/<i>/x``, ``pic/key``, ``pic/step``,
+# ``pic/rho``, ``rings/<g>/slots``, ``pending/<g>/dest``, ...), so either
+# package restores the other's. ``state_tree`` is that layout as nested
+# dicts and tuples; ``state_shape`` / ``state_shardings`` are the same tree
+# of shapes and dtypes / of devices, the ``like`` and the placement of a
+# typed restore onto the same domain count; ``resplit_host`` and
+# ``elastic_state`` are the elastic path onto D' != D: host-side compaction
+# and re-split, then a rebuild in closed form (rings from the alive counts,
+# empty pending) that never runs the init-only full free-slot scan.
+
+_SPECIES_FIELDS = ("x", "v", "w", "alive")
+_RING_FIELDS = ("slots", "head", "count")
+_PENDING_FIELDS = ("x", "v", "w", "alive", "dest")
 
 
-def state_shape(*args, **kwargs):
-    raise NotImplementedError("state_shape (checkpoint restore) is not "
-                              "ported yet: " + _ROADMAP.format(4))
+def state_tree(state: EngineState) -> dict:
+    """The state as the reference's ``EngineState`` pytree: nested dicts
+    and tuples of the state's own tensors (no copy), with ``pic/key`` the
+    host key and ``pic/step`` a 0-d int32 array. Flattened, its key paths
+    are the reference's checkpoint keys. The generators are not in it."""
+    pic = {"species": tuple({f: getattr(b, f) for f in _SPECIES_FIELDS}
+                            for b in state.species),
+           "key": state.key, "step": np.asarray(state.step, np.int32)}
+    if state.rho is not None:
+        pic["rho"] = state.rho
+    return {"pic": pic,
+            "rings": tuple({f: getattr(rg, f) for f in _RING_FIELDS}
+                           for rg in state.rings),
+            "pending": tuple({f: getattr(p, f) for f in _PENDING_FIELDS}
+                             for p in state.pending)}
 
 
-def state_shardings(*args, **kwargs):
-    raise NotImplementedError("state_shardings (checkpoint restore) is not "
-                              "ported yet: " + _ROADMAP.format(4))
+def state_from_tree(ecfg: EngineConfig, tree: dict,
+                    device="cuda") -> EngineState:
+    """The inverse of ``state_tree``, from numpy arrays or tensors (a
+    restored checkpoint); the generators are seeded from the key rows
+    (``state_from_numpy``)."""
+    pic = tree["pic"]
+    return state_from_numpy(ecfg, {
+        "species": list(pic["species"]), "key": np.asarray(pic["key"]),
+        "step": int(pic["step"]), "rho": pic.get("rho"),
+        "rings": list(tree["rings"]), "pending": list(tree["pending"])},
+        device=device)
 
 
-def resplit_host(*args, **kwargs):
-    raise NotImplementedError("resplit_host (elastic restore) is not "
-                              "ported yet: " + _ROADMAP.format(4))
+def _spec(shape, dtype) -> np.ndarray:
+    """A leaf of ``state_shape``: an array of this shape and dtype that
+    holds no memory (a broadcast zero)."""
+    return np.broadcast_to(np.zeros((), dtype), shape)
 
 
-def elastic_state(*args, **kwargs):
-    raise NotImplementedError("elastic_state (elastic restore) is not "
-                              "ported yet: " + _ROADMAP.format(4))
+def state_shape(ecfg: EngineConfig) -> dict:
+    """The ``state_tree`` of this config with memoryless arrays of each
+    leaf's shape and dtype: the ``like`` of a bitwise checkpoint
+    restore."""
+    cfg = ecfg.pic
+    d = ecfg.num_domains()
+    f32, i32 = np.float32, np.int32
+    species = []
+    for sc in cfg.species:
+        cap = ecfg.local_cap(sc)
+        species.append({"x": _spec((d, cap), f32),
+                        "v": _spec((d, cap, 3), f32),
+                        "w": _spec((d, cap), f32),
+                        "alive": _spec((d, cap), bool)})
+    pic = {"species": tuple(species), "key": _spec((d, 2), np.uint32),
+           "step": _spec((), i32)}
+    if _carries_rho(ecfg):
+        pic["rho"] = _spec((d, ecfg.local_nc() + 1), f32)
+    rings, pending = [], []
+    if ecfg.use_ring:
+        groups = _capacity_groups(ecfg)
+        for idxs, m in zip(groups, _group_pending_rows(ecfg, groups)):
+            s, cap = len(idxs), ecfg.local_cap(cfg.species[idxs[0]])
+            rings.append({"slots": _spec((d, s, cap), i32),
+                          "head": _spec((d, s), i32),
+                          "count": _spec((d, s), i32)})
+            pending.append({"x": _spec((d, s, m), f32),
+                            "v": _spec((d, s, m, 3), f32),
+                            "w": _spec((d, s, m), f32),
+                            "alive": _spec((d, s, m), bool),
+                            "dest": _spec((d, s, m), i32)})
+    return {"pic": pic, "rings": tuple(rings), "pending": tuple(pending)}
+
+
+def state_shardings(ecfg: EngineConfig, device="cuda") -> dict:
+    """The device of each leaf of ``state_shape`` (the reference's
+    NamedShardings): the port has no mesh to map onto, since its D domains
+    are rows of tensors on one device, so every buffer lies on ``device``,
+    and the key and the step, which the port keeps on the host, on the
+    CPU."""
+    dev = resolve_device(device)
+    host = torch.device("cpu")
+
+    def place(tree, on):
+        if isinstance(tree, dict):
+            return {k: place(v, host if k in ("key", "step") else on)
+                    for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(place(v, on) for v in tree)
+        return on
+
+    return place(state_shape(ecfg), dev)
+
+
+def retarget_state(old: EngineConfig, new: EngineConfig,
+                   state: EngineState) -> EngineState:
+    """Carry a live EngineState across an engine-knob change (auto-tuner).
+
+    Knobs that leave the state's layout alone (``async_n``,
+    ``rebalance_every``, ``rebalance_skew``, ``cell_order``, ``metrics``)
+    return the state itself. The budget knobs (``max_migration``,
+    ``max_births``) size ``EngineState.pending``, so those retunes flush
+    the in-flight arrivals into their pre-claimed slots (the scatter the
+    next ingest would have done), rebuild the free-slot rings from the
+    alive masks (the one full scan the ring design allows outside init),
+    and attach empty pending blocks sized for the new config. The carried
+    rho already includes the pending rows' deposits, so it carries over
+    untouched. The physics config must be identical, and so must the
+    domains and local capacities (another domain count is the elastic
+    restore's work).
+    """
+    if old.pic != new.pic:
+        raise ValueError(
+            "retarget_state only retunes engine knobs; the physics config "
+            "(EngineConfig.pic) must be identical")
+    if (old.domains != new.domains
+            or old.species_capacity_local != new.species_capacity_local):
+        raise ValueError(
+            "retarget_state keeps the domains and local capacities; a new "
+            "domain count goes through the elastic restore "
+            "(resplit_host + elastic_state)")
+    groups_old = _capacity_groups(old)
+    groups_new = _capacity_groups(new)
+    if (old.use_ring == new.use_ring and groups_old == groups_new
+            and _group_pending_rows(old, groups_old)
+            == _group_pending_rows(new, groups_new)):
+        return state  # same layout: the next step takes it as it is
+    sts = [_flush_pending(st, p, inplace=False)
+           for st, p in zip(state.groups, state.pending)] \
+        if old.use_ring else list(state.groups)
+    species = {}
+    for st, idxs in zip(sts, groups_old):
+        for j, i in enumerate(idxs):
+            species[i] = SpeciesBuffer(x=st.x[:, j], v=st.v[:, j],
+                                       w=st.w[:, j], alive=st.alive[:, j])
+    species = [species[i] for i in range(len(species))]
+    return _assemble(new, species, state.key, state.step, state.rho,
+                     state.groups[0].x.device, gens=state.gens)
+
+
+def resplit_host(ecfg: EngineConfig, flat: dict, *, d_old: int):
+    """Host-side elastic re-split of a checkpointed EngineState.
+
+    ``flat`` is the ``{keypath: host array}`` dict of a checkpoint taken at
+    ``d_old`` domains (``Checkpointer.restore_flat``); ``ecfg.domains`` is
+    the new count. On host numpy: flush every in-flight pending row into
+    its pre-claimed slot (the scatter the next ingest would have done),
+    globalize positions, reassign each alive particle to its new domain by
+    position, and compact per new domain (alive first, checkpoint order
+    within a domain).
+
+    Returns ``(species, counts)``: per-species dicts of ``(D', cap')``
+    host arrays plus a ``(D', S)`` alive-count matrix, the closed-form
+    inputs ``elastic_state`` rebuilds rings from without a full-capacity
+    scan. Raises ``ValueError`` if a new domain's population exceeds its
+    local capacity (re-split cannot invent headroom).
+    """
+    cfg = ecfg.pic
+    d_new = ecfg.num_domains()
+    if cfg.nc % d_old != 0 or cfg.nc % d_new != 0:
+        raise ValueError(
+            f"nc={cfg.nc} must divide both the checkpoint domains "
+            f"({d_old}) and the current domains ({d_new})")
+    old = dataclasses.replace(ecfg, domains=d_old)
+    l_old = (cfg.nc // d_old) * cfg.dx
+    l_new = (cfg.nc // d_new) * cfg.dx
+    nsp = len(cfg.species)
+
+    # typed host buffers, one per species, with pending flushed in
+    bufs = [{f: np.array(flat[f"pic/species/{i}/{f}"])
+             for f in _SPECIES_FIELDS} for i in range(nsp)]
+    for g, idxs in enumerate(_capacity_groups(old)):
+        if f"pending/{g}/dest" not in flat:
+            continue                      # legacy (use_ring=False) ckpt
+        pend = {f: np.asarray(flat[f"pending/{g}/{f}"])
+                for f in _PENDING_FIELDS}
+        for j, i in enumerate(idxs):
+            cap_old = bufs[i]["x"].shape[1]
+            ok = pend["alive"][:, j] & (pend["dest"][:, j] < cap_old)
+            for r in range(d_old):
+                dst = pend["dest"][r, j][ok[r]]
+                bufs[i]["x"][r, dst] = pend["x"][r, j][ok[r]]
+                bufs[i]["v"][r, dst] = pend["v"][r, j][ok[r]]
+                bufs[i]["w"][r, dst] = pend["w"][r, j][ok[r]]
+                bufs[i]["alive"][r, dst] = True
+
+    species_out, counts = [], np.zeros((d_new, nsp), np.int32)
+    for i, sc in enumerate(cfg.species):
+        cap_new = ecfg.local_cap(sc)
+        b = bufs[i]
+        alive = b["alive"].astype(bool)
+        # globalize in f64 (exact for f32 inputs), localize, cast back
+        off = l_old * np.arange(d_old, dtype=np.float64)[:, None]
+        xs = (b["x"].astype(np.float64) + off)[alive]
+        vs, ws = b["v"][alive], b["w"][alive]
+        r_new = np.clip(np.floor(xs / l_new).astype(np.int64), 0, d_new - 1)
+        xdt = b["x"].dtype
+        xl = (xs - r_new * l_new).astype(xdt)
+        xl = np.clip(xl, xdt.type(0),
+                     np.nextafter(xdt.type(l_new), xdt.type(0)))
+        nx = np.zeros((d_new, cap_new), xdt)
+        nv = np.zeros((d_new, cap_new, 3), b["v"].dtype)
+        nw = np.zeros((d_new, cap_new), b["w"].dtype)
+        na = np.zeros((d_new, cap_new), bool)
+        for r in range(d_new):
+            sel = r_new == r             # keeps the checkpoint order
+            n_r = int(sel.sum())
+            if n_r > cap_new:
+                raise ValueError(
+                    f"species {i}: {n_r} particles land on domain {r} but "
+                    f"the local capacity at D={d_new} is {cap_new}")
+            nx[r, :n_r], nv[r, :n_r] = xl[sel], vs[sel]
+            nw[r, :n_r], na[r, :n_r] = ws[sel], True
+            counts[r, i] = n_r
+        species_out.append({"x": nx, "v": nv, "w": nw, "alive": na})
+    return species_out, counts
+
+
+def elastic_state(ecfg: EngineConfig, species, counts, key0, step: int = 0,
+                  device="cuda") -> EngineState:
+    """An EngineState from host-compacted per-domain buffers.
+
+    ``species``/``counts`` come from ``resplit_host``. Rings are rebuilt in
+    closed form from the alive counts (``ring_from_counts``: compaction
+    makes the free set a contiguous tail, so no full-capacity scan),
+    pending starts empty, the carried rho is deposited anew, and the
+    per-domain generators and key are derived from ``key0`` (its 64-bit
+    integer as the seed) as ``init_engine_state`` derives them from its
+    seed. An elastic restart is therefore deterministic given the
+    checkpoint, but not bitwise-continuous with the streams before it.
+    """
+    dev = resolve_device(device)
+    f32 = torch.float32
+    bufs = [SpeciesBuffer(
+        x=torch.tensor(s["x"], dtype=f32, device=dev),
+        v=torch.tensor(s["v"], dtype=f32, device=dev),
+        w=torch.tensor(s["w"], dtype=f32, device=dev),
+        alive=torch.tensor(s["alive"], dtype=torch.bool, device=dev))
+        for s in species]
+    key = _domain_keys(_key_seed(key0), ecfg.num_domains())
+    if not ecfg.use_ring:
+        return _assemble(ecfg, bufs, key, step, None, dev)
+    cnt = torch.tensor(np.asarray(counts), dtype=torch.int32, device=dev)
+    groups = _capacity_groups(ecfg)
+    prows = _group_pending_rows(ecfg, groups)
+    rings, pending = [], []
+    for idxs, m in zip(groups, prows):
+        cap = ecfg.local_cap(ecfg.pic.species[idxs[0]])
+        rings.append(ring_from_counts(cnt[:, list(idxs)], cap))
+        pending.append(_empty_pending(ecfg.num_domains(), len(idxs), m, cap,
+                                      dev))
+    return _assemble(ecfg, bufs, key, step, None, dev, rings, pending)

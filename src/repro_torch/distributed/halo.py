@@ -28,9 +28,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.fields import reciprocal
+from repro_torch.obs.tracing import phase_scope
 
 
 def _move(a: torch.Tensor, shift: int) -> torch.Tensor:
@@ -45,7 +45,7 @@ def _move(a: torch.Tensor, shift: int) -> torch.Tensor:
 def ppermute(a: torch.Tensor, shift: int) -> torch.Tensor:
     """Row r of ``a`` (D, ...) to row (r + shift) mod D: the reference's
     ring ``ppermute`` over the domain axis."""
-    with record_function("halo/ppermute"):
+    with phase_scope("halo/ppermute"):
         return _move(a, shift)
 
 
@@ -56,7 +56,7 @@ def send(dst, index, src) -> None:
     """Copy every tensor field of ``src`` into ``dst[index]``, a row of
     another domain's receive buffer, on the current stream: one queue's
     migration pack to a neighbour. Counts in ``ppermute.moved``."""
-    with record_function("halo/ppermute"):
+    with phase_scope("halo/ppermute"):
         for f in dataclasses.fields(src):
             a = getattr(src, f.name)
             ppermute.moved += a.numel()
@@ -97,7 +97,7 @@ def halo_sum(rho: torch.Tensor) -> torch.Tensor:
     """Complete the shared edge nodes of per-domain deposits (D, ngl):
     domain r's node ncl and domain r+1's node 0 are one global node, and
     after the exchange both copies carry the full sum."""
-    with record_function("halo/sum"):
+    with phase_scope("halo/sum"):
         from_left, from_right = neighbor_vals(rho[:, 0], rho[:, -1])
         out = rho.clone()
         out[:, 0] = rho[:, 0] + from_left
@@ -109,7 +109,7 @@ def smooth_halo(f: torch.Tensor, passes: int) -> torch.Tensor:
     """The (1/4, 1/2, 1/4) binomial smoother over (D, ngl) slabs, one halo
     node a side a pass; the (3/4, 1/4) one-sided stencil at the global
     walls. Equals ``fields.smooth_binomial`` on the assembled array."""
-    with record_function("halo/smooth"):
+    with phase_scope("halo/smooth"):
         for _ in range(passes):
             hl, hr = neighbor_vals(f[:, 1], f[:, -2])
             ext = torch.cat([hl[:, None], f, hr[:, None]], 1)
@@ -134,7 +134,7 @@ def solve_poisson_halo(rho: torch.Tensor, dx: float, eps0: float,
     carry of the earlier domains' block totals (D scalars a pass). At
     D = 1 the carries are exact zeros and the result is the single-domain
     solve's, bitwise."""
-    with record_function("halo/poisson"):
+    with phase_scope("halo/poisson"):
         d, ngl = rho.shape
         ncl = ngl - 1
         f = rho * (dx * dx) / eps0
@@ -161,7 +161,7 @@ def solve_poisson_halo(rho: torch.Tensor, dx: float, eps0: float,
 def efield_halo(phi: torch.Tensor, dx: float) -> torch.Tensor:
     """E = -dphi/dx over (D, ngl) slabs: centred with one phi halo node a
     side, one-sided at the global walls (``fields.efield``'s arithmetic)."""
-    with record_function("halo/efield"):
+    with phase_scope("halo/efield"):
         hl, hr = neighbor_vals(phi[:, 1], phi[:, -2])
         ext = torch.cat([hl[:, None], phi, hr[:, None]], 1)
         e = -(ext[:, 2:] - ext[:, :-2]) * reciprocal(2.0 * dx, phi.dtype)

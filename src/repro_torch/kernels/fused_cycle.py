@@ -38,7 +38,7 @@ from repro_torch.kernels.mover import (BOUNDARY_CODES, check_boundary,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_GRID = [ctypes.c_longlong, _I, _F, _F, _I, _F, _F, _F, _F, _F, _I]
+_GRID = [ctypes.c_longlong, _I, _F, _F, _I, _F, _F, _F, _F, _F, _F, _I]
 _ARGTYPES = [_P] * 16 + _GRID + [_P]
 _BLOCK_ARGTYPES = [_P] * 16 + _GRID + [_I, _P]
 
@@ -96,8 +96,8 @@ def fused_push_deposit(x, v, w, alive, e, qm_dt, dt, charge, *, x0, dx, nc,
             e.data_ptr(), qm_dt.data_ptr(), dt.data_ptr(), charge.data_ptr(),
             xo.data_ptr(), vo.data_ptr(), wo.data_ptr(), ao.data_ptr(),
             hl.data_ptr(), hr.data_ptr())
-    grid = (cap, s, x0, inv_dx(dx), nc, length, clamp_hi(length), *bf,
-            code)
+    grid = (cap, s, x0, inv_dx(dx), nc, length, inv_dx(length),
+            clamp_hi(length), *bf, code)
     stream = _build.stream_of(x)
     rho = None
     if form == "block":

@@ -29,6 +29,7 @@ BOUNDARY_CODES = {"periodic": 0, "absorb": 1, "open": 2}
 _P = ctypes.c_void_p
 _ARGTYPES = [_P] * 9 + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
                         ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                        ctypes.c_float,
                         ctypes.c_float, ctypes.c_float, ctypes.c_float,
                         ctypes.c_float, ctypes.c_float, ctypes.c_int, _P]
 
@@ -80,7 +81,9 @@ def push_plain(x, vx, vy, vz, alive, e, *, x0, dx, nc, length, half, dt, b,
     hl = torch.zeros_like(alive)
     hr = torch.zeros_like(alive)
     if boundary == "periodic":
-        xn = xn - torch.floor(xn / length) * length
+        # x / length rounded as jitted JAX rounds it: a multiply by the
+        # float32 reciprocal (x = length then stays at length, as there)
+        xn = xn - torch.floor(xn * inv_dx(length)) * length
     elif boundary == "absorb":
         hl = alive & (xn < 0.0)
         hr = alive & (xn >= length)
@@ -126,7 +129,8 @@ def mover_push(x, v, alive, e, *, x0, dx, nc, length, qm_dt, dt, b,
     fn = _build.function("mover", "mover_push", _ARGTYPES)
     err = fn(x.data_ptr(), v.data_ptr(), alive.data_ptr(), e.data_ptr(),
              xo.data_ptr(), vo.data_ptr(), ao.data_ptr(), hl.data_ptr(),
-             hr.data_ptr(), n, x0, inv_dx(dx), nc, length, clamp_hi(length),
+             hr.data_ptr(), n, x0, inv_dx(dx), nc, length, inv_dx(length),
+             clamp_hi(length),
              qm_dt, dt, *(float(c) for c in b), BOUNDARY_CODES[boundary],
              _build.stream_of(x))
     mover_push.launches += 1

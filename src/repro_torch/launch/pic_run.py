@@ -7,7 +7,9 @@ multi-domain.
         [--rebalance-skew T] [--cell-order] [--max-births N] \
         [--strategy unified|explicit|async_batched|fused] \
         [--field-solve] [--see-yield Y] [--collisions elastic,cx,coulomb] \
-        [--diag-every K] [--phases] [--device cuda|cpu]
+        [--diag-every K] [--phases] [--device cuda|cpu] \
+        [--profile-dir DIR] [--metrics-jsonl FILE] [--autotune] \
+        [--ckpt-dir DIR --ckpt-every K] [--resume] [--fail-at-step N]
 
 The scenario is ``configs/pic_bit1.make_bench_config(nc, particles)``
 (buffers hold twice the initial particles); --see-yield Y switches the walls
@@ -24,6 +26,23 @@ domains, each with n queues on their own CUDA streams; it prints the MC
 sources of the last step, the per-queue balance and, with --phases, the
 per-phase breakdown of the engine's probes. --domains 1 --async-n 1 keeps
 the single-domain cycle.
+
+Observability (``repro_torch.obs``): --profile-dir DIR captures a
+``torch.profiler`` trace of the run into DIR (a Chrome trace, for Perfetto;
+the engine's phase ranges appear in it, and as NVTX ranges under Nsight
+Systems); --metrics-jsonl FILE streams one structured metrics record per
+engine step; --autotune lets the online controller retune the engine knobs
+(async_n, migration/birth budgets, rebalance triggers) from the measured
+stream between steps. The last two force the engine path even at
+--domains 1.
+
+Resilience (``repro_torch.runtime.resilience``): --ckpt-dir DIR checkpoints
+the full engine state asynchronously every --ckpt-every steps; --resume
+restarts from the newest complete checkpoint (bitwise when --domains
+matches the save, elastic re-split otherwise); --fail-at-step N injects a
+simulated failure at step N — the restart drill is to re-run the same
+command with --resume. These flags force the engine path and exclude
+--autotune.
 """
 
 from __future__ import annotations
@@ -74,7 +93,35 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' runs the kernels; 'cpu' their plain "
                          "PyTorch versions")
+    ap.add_argument("--profile-dir", default="",
+                    help="capture a torch.profiler trace of the run into "
+                         "this directory (a Chrome trace for Perfetto)")
+    ap.add_argument("--metrics-jsonl", default="",
+                    help="stream per-step engine metrics records to this "
+                         "JSONL file (engine path)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="retune the engine knobs online from the metrics "
+                         "stream (engine path)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint the engine state into this directory "
+                         "(async write; engine path)")
+    ap.add_argument("--ckpt-every", type=int, default=5,
+                    help="checkpoint cadence in steps (with --ckpt-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest complete checkpoint in "
+                         "--ckpt-dir (elastic: --domains may differ from "
+                         "the save)")
+    ap.add_argument("--fail-at-step", type=int, default=-1,
+                    help="inject a simulated failure at this step (restart "
+                         "drill; restart the command with --resume)")
     args = ap.parse_args(argv)
+    resilient = bool(args.ckpt_dir) or args.fail_at_step >= 0
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir")
+    if args.autotune and resilient:
+        ap.error("--autotune cannot be combined with the checkpoint flags "
+                 "(the knob retunes would change the state's layout "
+                 "mid-run)")
 
     import torch
 
@@ -84,6 +131,8 @@ def main(argv=None) -> None:
                                               make_see_config)
     from repro_torch.core import pic
     from repro_torch.distributed import engine, perf
+    from repro_torch.obs import MetricsStream, tracing
+    from repro_torch.obs.metrics import host_values
 
     if args.see_yield > 0.0:
         cfg = make_see_config(nc=args.nc, n=args.particles,
@@ -102,16 +151,19 @@ def main(argv=None) -> None:
                                   collisions=make_collision_menu(menu))
 
     dev = pic.resolve_device(args.device)
+    want_stream = bool(args.metrics_jsonl or args.autotune)
+    profile_dir = args.profile_dir or None
     t0 = time.perf_counter()
     ecfg = None
     balance = {}
     if (args.domains == 1 and args.async_n == 1
             and args.rebalance_every == 0 and args.rebalance_skew == 0
-            and not args.cell_order):
+            and not args.cell_order and not want_stream and not resilient):
         state = pic.init_state(cfg, 0, device=dev)
-        final, diags = pic.run(cfg, args.steps, state=state)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with tracing.trace_session(profile_dir):
+            final, diags = pic.run(cfg, args.steps, state=state)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         # count from the final state: with --diag-every K the diagnostics
         # hold zeros on off-steps
         counts = {f"{sc.name}/count": int(buf.count())
@@ -126,14 +178,75 @@ def main(argv=None) -> None:
                                   max_births=args.max_births,
                                   rebalance_every=args.rebalance_every,
                                   rebalance_skew=args.rebalance_skew,
-                                  cell_order=args.cell_order)
+                                  cell_order=args.cell_order,
+                                  metrics=want_stream)
         state = engine.init_engine_state(ecfg, 0, device=dev)
-        step = engine.make_engine_step(ecfg)
+        stream = None
+        if want_stream:
+            stream = MetricsStream(
+                jsonl_path=args.metrics_jsonl or None,
+                config={"domains": args.domains,
+                        "async_n": args.async_n,
+                        "max_births": args.max_births,
+                        "rebalance_every": args.rebalance_every,
+                        "rebalance_skew": args.rebalance_skew,
+                        "steps": args.steps,
+                        "autotune": bool(args.autotune)})
         diag = {}
-        for _ in range(args.steps):
-            state, diag = step(state)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if resilient:
+            from repro_torch.ckpt.checkpoint import Checkpointer
+            from repro_torch.runtime import resilience
+            from repro_torch.runtime.fault_tolerance import (
+                FailureInjector, SimulatedFailure)
+            ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+            if args.resume:
+                step0, state = resilience.resume_engine(ecfg, ckpt,
+                                                        device=dev)
+                print(f"resumed from checkpoint step {step0} "
+                      f"in {args.ckpt_dir}")
+            # a resumed run is the restarted process: its failure has
+            # happened, so the same command line with --resume runs through
+            inj = (FailureInjector(args.fail_at_step, fired=args.resume)
+                   if args.fail_at_step >= 0 else None)
+            try:
+                with tracing.trace_session(profile_dir):
+                    state, run_diags = resilience.run_engine(
+                        ecfg, state, num_steps=args.steps, ckpt=ckpt,
+                        ckpt_every=args.ckpt_every, injector=inj,
+                        stream=stream, collect=True)
+                if run_diags:
+                    diag = run_diags[-1]
+            except SimulatedFailure as e:
+                if stream is not None:
+                    stream.close()
+                print(f"simulated failure: {e} — restart the same command "
+                      f"with --resume to continue from the newest "
+                      f"checkpoint")
+                return
+        elif args.autotune:
+            from repro_torch.obs.autotune import AutoTuner
+            tuner = AutoTuner(ecfg, stream=stream)
+            with tracing.trace_session(profile_dir):
+                for _ in range(args.steps):
+                    state, diag = tuner.run_step(state)
+            ecfg = tuner.ecfg
+            for line in tuner.log:
+                print("autotune:", line)
+        else:
+            step = engine.make_engine_step(ecfg)
+            with tracing.trace_session(profile_dir):
+                for _ in range(args.steps):
+                    ts = time.perf_counter()
+                    state, diag = step(state)
+                    if stream is not None:
+                        diag = host_values(diag)
+                        stream.record(
+                            diag, wall_us=(time.perf_counter() - ts) * 1e6)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+        if stream is not None:
+            print("metrics:", stream.summary())
+            stream.close()
         counts = {k: int(v) for k, v in diag.items()
                   if k.endswith("/count")}
         sources = {k: int(v) for k, v in diag.items()
@@ -145,6 +258,8 @@ def main(argv=None) -> None:
         balance = {k: v.tolist() for k, v in diag.items()
                    if k.endswith(("/queue_occ", "/queue_skew"))}
     wall = time.perf_counter() - t0
+    if profile_dir:
+        print(f"profiler trace written to {profile_dir}")
     print(f"{args.steps} steps, {args.domains} domain(s), "
           f"async_n={args.async_n}, rebalance_every={args.rebalance_every}, "
           f"strategy={args.strategy}: {wall:.2f}s "
@@ -165,6 +280,7 @@ def main(argv=None) -> None:
                   f"total={probe['total']:.1f}")
             for flag in probe["flags"]:
                 print("probe flag:", flag)
+
 
 if __name__ == "__main__":
     main()

@@ -21,9 +21,12 @@ from _torch_parity import n, t
 from repro.core import collisions as ref_coll
 from repro.core import fields as ref_fields
 from repro.core import grid as ref_grid
+from repro.core import mover as ref_mover
 from repro.core import particles as ref_particles
+from repro.kernels import ops as ref_ops
 from repro.kernels import ref
 from repro_torch.core import collisions, fields, grid, particles
+from repro_torch.core import mover as port_mover
 from repro_torch.kernels import fused_cycle, mover, ops
 
 NC = 58_111
@@ -163,3 +166,75 @@ def test_push_and_deposit_plain_hold_to_the_jitted_oracles(boundary):
                                     dx=DX, nc=NC)
     np.testing.assert_allclose(n(got), np.asarray(want)[0], rtol=1e-3,
                                atol=1e-3)
+
+
+def _wall_positions(length):
+    """float32 positions on and within 64 steps of -L, 0, L and 2L (the
+    pushed positions a periodic wrap sees just past each wall): ulps of
+    the wall, and at 0 multiples of L's ulp (an ulp of 0 is subnormal,
+    which XLA on the CPU flushes to 0 and PyTorch keeps)."""
+    f32 = np.float32
+    step = np.spacing(f32(length))
+    out = [f32(k) * step for k in range(-64, 65)]
+    for wall in (-f32(length), f32(length), f32(2) * f32(length)):
+        lo = hi = wall
+        out.append(wall)
+        for _ in range(64):
+            lo = np.nextafter(lo, f32(-np.inf))
+            hi = np.nextafter(hi, f32(np.inf))
+            out += [lo, hi]
+    return np.asarray(out, f32)
+
+
+# 10 is the length of the dx = 10 / 58,111 grid; at 3.7 and 7 the float32
+# reciprocal rounds L * (1 / L) off 1, so a position on a wall wraps apart
+# under the two roundings of x / L
+@pytest.mark.parametrize("length", [LENGTH, 3.7, 7.0])
+def test_periodic_wrap_equals_the_reference_kernels(length):
+    """The periodic wrap x - floor(x / L) * L at positions on and just past
+    each wall (v = 0, E = 0, so the push leaves x as it is): the port's
+    plain mover and fused push equal the reference's Pallas kernels
+    (interpret mode) and its jitted oracle to 0 ulp; its ``apply_boundary``
+    equals the reference's ``jnp.mod``."""
+    x = _wall_positions(length)
+    m = x.size
+    nc = NC if length == LENGTH else 64
+    dx = length / nc
+    v = np.zeros((m, 3), np.float32)
+    alive = np.ones(m, bool)
+    w = np.ones(m, np.float32)
+    e = np.zeros(nc + 1, np.float32)
+    kw = dict(x0=0.0, dx=dx, length=length, b=(0.0, 0.0, 0.0),
+              boundary="periodic")
+    want = np.asarray(ref_ops.mover_push(
+        jnp.asarray(x), jnp.asarray(v), jnp.asarray(alive), jnp.asarray(e),
+        qm=-1.0, dt=0.05, **kw)[0])
+    fused_want = np.asarray(ref_ops.fused_push_deposit(
+        jnp.asarray(x), jnp.asarray(v), jnp.asarray(alive), jnp.asarray(w),
+        jnp.asarray(e), qm=-1.0, dt=0.05, charge=-1.0, **kw)[0])
+    oracle = np.asarray(jax.jit(lambda *a: ref.mover_push_ref(
+        *a, x0=0.0, dx=dx, nc=nc, length=length, qm=-1.0, dt=0.05,
+        b=(0.0, 0.0, 0.0), boundary="periodic"))(
+        *map(_planes, (x, v[:, 0], v[:, 1], v[:, 2],
+                       alive.astype(np.float32), e)))[0])[0]
+    np.testing.assert_array_equal(fused_want, want)
+    np.testing.assert_array_equal(oracle, want)
+    got = mover.mover_push_plain(t(x), t(v), t(alive), t(e), qm_dt=-0.05,
+                                 dt=0.05, nc=nc, **kw)[0]
+    np.testing.assert_array_equal(n(got), want)
+    f32 = np.float32
+    got = ops.fused_push_deposit(
+        t(x)[None], t(v)[None], t(w)[None], t(alive)[None], t(e),
+        t(np.array([-0.05], f32)), t(np.array([0.05], f32)),
+        t(np.array([-1.0], f32)), nc=nc, deposit=True, **kw)[0][0]
+    np.testing.assert_array_equal(n(got), want)
+    jmod = np.asarray(jax.jit(lambda a: ref_mover.apply_boundary(
+        a, jnp.ones(a.shape, bool), length, "periodic")[0])(x))
+    np.testing.assert_array_equal(
+        n(port_mover.apply_boundary(t(x), t(alive), length, "periodic")[0]),
+        jmod)
+    if length != LENGTH:
+        # the wrap has teeth here: an IEEE division of x / L rounds a
+        # position on a wall to the other side
+        ieee = x - np.floor(x / np.float32(length)) * np.float32(length)
+        assert (ieee != want).any()

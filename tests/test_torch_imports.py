@@ -175,3 +175,53 @@ def test_engine_config_fields_match_but_for_the_mesh_axes():
     port = [f for f in _fields(port_engine.EngineConfig)
             if f[0] != "domains"]
     assert port == ref
+
+
+def test_obs_ckpt_runtime_import_with_jax_blocked():
+    """The observability, checkpoint and resilience modules, and the
+    launcher that exposes them, import with JAX and the reference
+    blocked."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['jaxlib'] = None; sys.modules['repro'] = None\n"
+            "import repro_torch.obs\n"
+            "from repro_torch.obs import autotune, metrics, tracing\n"
+            "from repro_torch.ckpt import checkpoint\n"
+            "from repro_torch.runtime import fault_tolerance, resilience\n"
+            "import repro_torch.launch.pic_run\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module,names", [
+    ("obs", None), ("obs.metrics", ("atomic_write_json", "StepMetrics",
+                                    "from_diag", "MetricsStream",
+                                    "validate_record", "read_jsonl",
+                                    "validate_stream")),
+    ("obs.tracing", ("capture_scopes", "phase_scope", "host_span",
+                     "trace_session")),
+    ("obs.autotune", ("TunerPolicy", "decide", "AutoTuner")),
+    ("ckpt.checkpoint", ("Checkpointer", "roundtrip_bytes")),
+    ("runtime.fault_tolerance", ("SimulatedFailure", "FailureInjector",
+                                 "run_training", "resume_training")),
+    ("runtime.resilience", ("save_engine", "resume_engine", "run_engine")),
+])
+def test_ported_modules_have_the_reference_names(module, names):
+    """Each ported module has the reference's public names; ``obs`` has the
+    reference's ``__all__`` with ``trace_scope_names`` in place of
+    ``jaxpr_scope_names``."""
+    import importlib
+    ref = importlib.import_module(f"repro.{module}")
+    port = importlib.import_module(f"repro_torch.{module}")
+    if names is None:
+        want = [n if n != "jaxpr_scope_names" else "trace_scope_names"
+                for n in ref.__all__]
+        assert port.__all__ == want
+        names = want
+    for name in names:
+        assert hasattr(ref, name) or name == "trace_scope_names", name
+        assert hasattr(port, name), name
