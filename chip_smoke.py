@@ -117,7 +117,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
    once each, and ``--autotune`` for 10 steps (one retune after its
    window of 8);
 11. one line of JSON with every kernel's numbers (launches summed over
-   the main paths, the engine's and phase 10's), then the result line.
+   the main paths, the engine's, phase 10's and phase 12's), then the
+   result line;
+12. runtime parameters and the serving layer (run after phase 10), with
+   the kernels' launch counts set to 0 before each of its paths and read
+   after: (a) ``SimService(width=4)`` at the §3.3 configuration (fused,
+   field off, ionization), 8 sessions of 3 steps on the launcher's dt x
+   ionization-rate grid with slots reused: exact pair accounting for
+   every session at every step, every overflow counter 0, the launches of
+   every ensemble step equal to the running members times the solo
+   step's, no kernel build after the first step, host ms an ensemble step
+   beside 4 x phase 3's solo step, a 1-step profile and the peak memory;
+   (a') the collision menu with the deflection kernel at W 2, one
+   member's rates doubled; (b) the bitwise configuration at W 3: a
+   member equal to its solo run bit for bit, a parked slot frozen with
+   zero diagnostics, params equal to static bit for bit single-domain and
+   on the engine at D 4 x async_n 2; (c) a width-2 ensemble card against
+   CPU on the bench configuration (field on) with the same draws, within
+   phase 5's bands; (d) ``make_engine_step(with_params=True)`` at §3.3
+   (field on, ionization, D 4 x async_n 4), 3 steps with a second
+   parameter point from the second, pairs exact, launches pinned, no
+   build after the first step; (e) ``pic_run --ensemble 8 --steps 5
+   --strategy fused``, its lines in the reference launcher's form.
 
 Exits non-zero and prints no result without a CUDA device, or when the
 port's sources are not beside this script.
@@ -2626,6 +2647,448 @@ def obs_phase(dev):
     return counts, numbers
 
 
+# ---------------------------------------------------------------- phase 12 --
+
+SERVE_WIDTH = 4
+SERVE_SESSIONS = 8
+SERVE_STEPS = 3
+# the launcher's lines, as the reference launcher prints them
+SERVE_LINE = re.compile(r"session s(\d+): slot=(\d+) steps=(\d+) "
+                        r"ke=\{'D\+/ke': \S+, 'D/ke': \S+, 'e/ke': \S+\}")
+SERVE_LAST = re.compile(r"(\d+) sessions x (\d+) steps, width=(\d+): "
+                        r"[\d.]+s — stats (\{.*\})")
+PIC_KERNELS = ("fused_push_deposit", "mover_push", "deposit", "ta_kick")
+SERVE_ARGV = ["--ensemble", "8", "--steps", "5", "--strategy", "fused"]
+
+
+def serve_point(cfg, i, w):
+    """Session i's point on the launcher's dt x ionization-rate grid."""
+    return {"dt": cfg.dt * (1.0 + 0.1 * (i % w)),
+            "ionization_rate": cfg.ionization_rate * (1 + i)}
+
+
+def times_steps(svc):
+    """Replace ``svc``'s ensemble step by one timed on the host from a
+    synchronized card to the end of its work; returns the list the times
+    (ms) go to."""
+    inner, times = svc._step, []
+
+    def step(es):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(es)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    svc._step = step
+    return times
+
+
+def serve_section(dev, cfg, solo, solo_ms, counters):
+    """(a) ``SimService(width=4)`` at the §3.3 configuration: 8 sessions of
+    3 steps on the launcher's grid, slots reused; exact pair accounting for
+    every session at every step, every overflow counter 0, the launches of
+    every ensemble step = running sessions x ``solo``, no build after the
+    first step; host ms per ensemble step beside ``SERVE_WIDTH`` x
+    ``solo_ms``, a 1-step profile and the peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    from repro_torch.serve import SimService
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(counters)
+    svc = SimService(cfg, width=SERVE_WIDTH, device=dev)
+    times = times_steps(svc)
+    sids = [svc.submit(serve_point(cfg, i, SERVE_WIDTH), seed=i,
+                       steps=SERVE_STEPS) for i in range(SERVE_SESSIONS)]
+    prev = {sid: [sc.n_init for sc in cfg.species] for sid in sids}
+    slots, ionized, built, k = {}, dict.fromkeys(sids, 0), None, 0
+    while svc.stats()["running"]:
+        running = [s for s in sids if svc.poll(s)["status"] == "running"]
+        for s in running:
+            slots.setdefault(s, svc.poll(s)["slot"])
+        want = {n: len(running) * v for n, v in solo.items()}
+        before = launches(counters)
+        svc.step(1)
+        after = launches(counters)
+        delta = {n: after[n] - before[n] for n in after}
+        if delta != want:
+            raise AssertionError(f"(a) ensemble step {k}: launches {delta}, "
+                                 f"expected {want}")
+        if built is None:
+            built = _build.builds
+        elif _build.builds != built:
+            raise AssertionError(f"(a) step {k}: {_build.builds - built} "
+                                 f"kernel builds after the first step")
+        for s in running:
+            d = svc.poll(s)["diag"]
+            now = [int(d[f"{sc.name}/count"]) for sc in cfg.species]
+            n_ion = int(d["n_ionized"])
+            check_pairs(f"(a) session {s} step {k}", prev[s], now, n_ion)
+            for key in ("birth_overflow", "ionize_dropped"):
+                if int(d[key]):
+                    raise AssertionError(f"(a) session {s}: {key} = "
+                                         f"{int(d[key])}")
+            prev[s], ionized[s] = now, ionized[s] + n_ion
+        k += 1
+    done = [svc.poll(s) for s in sids]
+    if (any(p["status"] != "done" or p["steps_done"] != SERVE_STEPS
+            for p in done) or sorted(set(slots.values())) != list(
+                range(SERVE_WIDTH))):
+        raise AssertionError(f"(a) sessions {done}, slots {slots}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    paths = {"serve": launches(counters)}
+    # one more wave of 4 for a 1-step profile (its first step)
+    for i in range(SERVE_WIDTH):
+        svc.submit(serve_point(cfg, i, SERVE_WIDTH), seed=100 + i, steps=2)
+    svc.step(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        svc.step(1)
+        torch.cuda.synchronize()
+    steady = statistics.median(times[1:k])
+    report_profile(prof, f"an ensemble step (W {SERVE_WIDTH}, §3.3)", 1,
+                   steady)
+    if svc.stats()["compiles"] != built:
+        raise AssertionError("(a) a kernel was built after the first step")
+    log(f"phase 12 (a) SimService W {SERVE_WIDTH} at §3.3: "
+        f"{SERVE_SESSIONS} sessions x {SERVE_STEPS} steps in {k} ensemble "
+        f"steps, slots {slots}, ionized a session {list(ionized.values())}"
+        f", pairs exact at every step, overflow 0; host ms an ensemble "
+        f"step {[round(t, 3) for t in times[:k]]} (median after the first "
+        f"{steady:.3f}) against {SERVE_WIDTH} x the solo step "
+        f"{SERVE_WIDTH * solo_ms:.3f}; peak memory {peak:.2f} GiB; "
+        f"launches a member step {solo}; builds {built} (none after the "
+        f"first step)")
+    numbers = {"ensemble_ms": steady, "solo_ms": solo_ms, "peak_gib": peak,
+               "step_ms": times[:k]}
+    del svc
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
+def collision_serve(dev, counters):
+    """(a') the collision menu with the deflection kernel at §3.3, W 2,
+    its rates moved in one member: launches = active x the solo step's."""
+    from repro_torch.kernels.deposit import deposit_form
+    from repro_torch.serve import SimService
+
+    cfg = collision_config()
+    solo = expected(deposit_form(cfg.nc + 1), fused=1, ta=1)
+    reset_launches(counters)
+    svc = SimService(cfg, width=2, device=dev)
+    base = tuple(cc.rate for cc in cfg.collisions)
+    a = svc.submit({}, seed=1, steps=2)
+    b = svc.submit({"collision_rates": tuple(2 * r for r in base),
+                    "dt": 0.25}, seed=1, steps=2)
+    svc.run_until_drained()
+    got = launches(counters)
+    want = {n: 4 * v for n, v in solo.items()}
+    if got != want:
+        raise AssertionError(f"(a') launches {got}, expected {want}")
+    da, db = svc.poll(a)["diag"], svc.poll(b)["diag"]
+    tallies = {s: {key: int(d[key]) for key in COLL_KEYS}
+               for s, d in ((a, da), (b, db))}
+    if min(min(t.values()) for t in tallies.values()) <= 0 or \
+            tallies[a] == tallies[b]:
+        raise AssertionError(f"(a') collision tallies {tallies}")
+    log(f"phase 12 (a') collision menu W 2 at §3.3 (T-A kernel): last-step "
+        f"tallies {tallies} (rates doubled in {b}), launches {got}")
+    del svc
+    torch.cuda.empty_cache()
+    return got
+
+
+def bitwise_section(dev, counters):
+    """(b) the bitwise configuration (§3.3, field and ionization off: no
+    float atomics) at W 3: a member equal to its solo run bit for bit, a
+    parked slot frozen with zero diagnostics, and the params path equal to
+    the static path, single-domain and on the engine at D 4 x async_n 2."""
+    from repro_torch.core import pic
+    from repro_torch.core.params import runtime_params
+    from repro_torch.distributed import engine
+    from repro_torch.kernels.deposit import deposit_form
+    from repro_torch.serve import ensemble
+
+    cfg = bitwise_pic()
+    solo = expected(deposit_form(cfg.nc + 1), fused=1)
+    paths = {}
+    reset_launches(counters)
+    points = [runtime_params(cfg, dt=cfg.dt * f, device=dev)
+              for f in (1.0, 0.9, 1.1)]
+    es = ensemble.init_ensemble(cfg, 3, device=dev)
+    init = ensemble.make_member_init(cfg, device=dev)
+    insert = ensemble.make_member_insert(cfg)
+    for slot, rp in enumerate(points):
+        es = insert(es, init(20 + slot), rp, slot)
+    step = ensemble.make_ensemble_step(cfg)
+    es, _ = step(es)
+    es = ensemble.make_member_release(cfg)(es, 2)
+    parked = es.pic[2]
+    fields = ("x", "v", "w", "alive")
+    frozen = [getattr(b, f).clone() for b in parked.species for f in fields]
+    gen_parked = parked.gen.get_state().clone()
+    for k in range(2):
+        before = launches(counters)
+        es, diag = step(es)
+        after = launches(counters)
+        delta = {n: after[n] - before[n] for n in after}
+        if delta != {n: 2 * v for n, v in solo.items()}:
+            raise AssertionError(f"(b) step {k}: launches {delta}")
+        if any(bool(v[2].any()) for v in diag.values()):
+            raise AssertionError("(b) the parked slot reported diagnostics")
+    now = [getattr(b, f) for b in parked.species for f in fields]
+    if not (all(torch.equal(a, b) for a, b in zip(frozen, now))
+            and torch.equal(parked.gen.get_state(), gen_parked)
+            and es.pic[2] is parked and parked.step == 1):
+        raise AssertionError("(b) the parked slot's state moved")
+    del frozen, now
+    paths["ensemble"] = launches(counters)
+    # the member of slot 1 against the same member run alone
+    reset_launches(counters)
+    alone = init(21)
+    for _ in range(3):
+        alone, _ = pic.step_fn(alone, cfg, points[1])
+    check_pic_bitwise("(b) member 1 vs alone", es.pic[1], alone)
+    del es, alone, parked
+    torch.cuda.empty_cache()
+    # params against static, single-domain
+    a = pic.init_state(cfg, 7, device=dev)
+    b = pic.init_state(cfg, 7, device=dev)
+    rp = runtime_params(cfg, device=dev)
+    for _ in range(3):
+        a, da = pic.step_fn(a, cfg)
+        b, db = pic.step_fn(b, cfg, rp)
+        if any(not torch.equal(da[key], db[key]) for key in da):
+            raise AssertionError("(b) params vs static: diag differs")
+    check_pic_bitwise("(b) params vs static", a, b)
+    paths["single"] = launches(counters)
+    del a, b
+    torch.cuda.empty_cache()
+    # params against static on the engine, D 4 x async_n 2
+    reset_launches(counters)
+    ecfg = engine_config(4, 2, cfg)
+    sa = engine.init_engine_state(ecfg, 7, device=dev)
+    sb = engine.init_engine_state(ecfg, 7, device=dev)
+    static = pinned(engine.make_engine_step(ecfg), ecfg, counters,
+                    "(b) engine static")
+    params = pinned(engine.make_engine_step(ecfg, with_params=True), ecfg,
+                    counters, "(b) engine params")
+    da_all, db_all = [], []
+    for _ in range(3):
+        sa, da = static(sa)
+        sb, db = params(sb, rp)
+        da_all.append({key: v.cpu().numpy() for key, v in da.items()})
+        db_all.append({key: v.cpu().numpy() for key, v in db.items()})
+    check_states_bitwise("(b) engine params vs static", sa, sb)
+    check_diags_bitwise("(b) engine params vs static", da_all, db_all)
+    paths["engine"] = launches(counters)
+    log(f"phase 12 (b) bitwise configuration: W 3 member 1 equal to its "
+        f"solo run bit for bit (every tensor and the generator), the "
+        f"parked slot frozen with zero diagnostics (launches 2 x {solo} a "
+        f"step), params = static bit for bit single-domain (3 steps) and "
+        f"on the engine at D 4 x async_n 2 (3 steps, every leaf, generator "
+        f"and diagnostic)")
+    del sa, sb
+    torch.cuda.empty_cache()
+    return paths
+
+
+def check_pic_bitwise(label, a, b):
+    """Every tensor of two PICStates and their generator states equal."""
+    same = all(torch.equal(getattr(x, f), getattr(y, f))
+               for x, y in zip(a.species, b.species)
+               for f in ("x", "v", "w", "alive"))
+    same = same and (a.rho is None) == (b.rho is None) and (
+        a.rho is None or torch.equal(a.rho, b.rho))
+    if not (same and a.step == b.step
+            and torch.equal(a.gen.get_state(), b.gen.get_state())):
+        raise AssertionError(f"{label}: states differ")
+
+
+def ensemble_card_vs_cpu(dev, counters):
+    """(c) a width-2 ensemble on the small bench configuration (field solve
+    on, rho carried), card against CPU on the same states and draws for 3
+    steps: each member within phase 5's bands."""
+    import numpy as np
+
+    from repro_torch.configs.pic_bit1 import make_bench_config
+    from repro_torch.core import pic
+    from repro_torch.core.params import runtime_params
+    from repro_torch.serve import ensemble
+
+    cfg = dataclasses.replace(make_bench_config(strategy="fused"),
+                              field_solve=True)
+    reset_launches(counters)
+    pts = ({"dt": 0.2, "ionization_rate": 2e-4},
+           {"dt": 0.23, "ionization_rate": 5e-4})
+    cpu = ensemble.init_ensemble(cfg, 2, device="cpu")
+    card = ensemble.init_ensemble(cfg, 2, device=dev)
+    insert = ensemble.make_member_insert(cfg)
+    for slot, pt in enumerate(pts):
+        m = pic.init_state(cfg, 30 + slot, device="cpu")
+        arrays = [{"x": b.x.numpy(), "v": b.v.numpy(), "w": b.w.numpy(),
+                   "alive": b.alive.numpy()} for b in m.species]
+        insert(cpu, m, runtime_params(cfg, device="cpu", **pt), slot)
+        insert(card, pic.state_from_numpy(cfg, arrays, 0, m.rho.numpy(),
+                                       device=dev),
+            runtime_params(cfg, device=dev, **pt), slot)
+    step = ensemble.make_ensemble_step(cfg)
+    rng = np.random.default_rng(12)
+    cap = cfg.species[cfg.ionization[0]].capacity
+    length = cfg.length
+    worst = [0.0, 0.0, 0.0]
+    for k in range(3):
+        draws = {s: [{"uniform": rng.random(cap, dtype=np.float32),
+                      "normal": rng.standard_normal((cap, 3),
+                                                    dtype=np.float32)}]
+                 for s in range(2)}
+        cpu, dc = step(cpu, draws)
+        card, dg = step(card, draws)
+        for key in ("n_ionized", "birth_overflow", "e/count", "D+/count",
+                    "D/count"):
+            if not torch.equal(dc[key], dg[key].cpu()):
+                raise AssertionError(f"(c) step {k}: {key} {dg[key]} vs "
+                                     f"{dc[key]}")
+        for s in range(2):
+            mc, mg = cpu.pic[s], card.pic[s]
+            ex = ev = 0.0
+            for bc, bg in zip(mc.species, mg.species):
+                check_equal(f"(c) alive step {k} member {s}", bg.alive.cpu(),
+                            bc.alive)
+                ex = max(ex, periodic_err(bg.x.cpu(), bc.x, length))
+                vmax = float(bc.v.abs().max())
+                ev = max(ev, max_err(bg.v.cpu(), bc.v) / (1.0 + vmax))
+            er = max_err(mg.rho.cpu(), mc.rho)
+            rmax = float(mc.rho.abs().max())
+            if ex > 1e-5 * length or ev > 1e-4 or \
+                    er > RHO_TOL * (1.0 + rmax):
+                raise AssertionError(f"(c) step {k} member {s}: x {ex}, v "
+                                     f"{ev}, rho {er} (max {rmax})")
+            worst = [max(worst[0], ex), max(worst[1], ev),
+                     max(worst[2], er)]
+    ion = [int(v) for v in dg["n_ionized"].cpu()]
+    log(f"phase 12 (c) ensemble W 2 card vs CPU (bench, field on, 3 "
+        f"steps): counts and alive equal, ionized at the last step {ion}, "
+        f"max |dx| {worst[0]:.3g}, max |dv|/(1+max|v|) {worst[1]:.3g}, max "
+        f"|drho| {worst[2]:.3g}")
+    return launches(counters)
+
+
+def engine_params_section(dev, counters):
+    """(d) ``make_engine_step(with_params=True)`` at §3.3 (field on,
+    ionization, D 4 x async_n 4), 3 steps, a second parameter point from
+    the second step: exact pair accounting, every overflow counter 0,
+    launches pinned by ``engine_launches``, no build after the first step."""
+    from repro_torch.core.params import runtime_params
+    from repro_torch.distributed import engine
+    from repro_torch.kernels import _build
+
+    ecfg = engine_config(4, 4)
+    cfg = ecfg.pic
+    reset_launches(counters)
+    points = [runtime_params(cfg, device=dev),
+              runtime_params(cfg, dt=cfg.dt * 0.9,
+                             ionization_rate=2 * cfg.ionization_rate,
+                             device=dev)]
+    step = pinned(engine.make_engine_step(ecfg, with_params=True), ecfg,
+                  counters, "(d)")
+    state = engine.init_engine_state(ecfg, 0, device=dev)
+    n0 = resident_counts(state)
+    ionized, built, times = 0, None, []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, diag = step(state, points[min(k, 1)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        built = _build.builds if built is None else built
+        if _build.builds != built:
+            raise AssertionError("(d) a kernel was built after the first "
+                                 "step")
+        for key, v in diag.items():
+            if key.rsplit("/", 1)[-1] in ("birth_overflow",
+                                          "migration_overflow",
+                                          "merge_dropped") and int(v):
+                raise AssertionError(f"(d) step {k}: {key} = {int(v)}")
+        ionized += int(diag["n_ionized"])
+        counts = [int(diag[f"{sc.name}/count"]) for sc in cfg.species]
+        check_pairs(f"(d) step {k}", n0, counts, ionized)
+    if counts != resident_counts(state):
+        raise AssertionError("(d) diag counts are not resident + pending")
+    log(f"phase 12 (d) engine with_params at §3.3 (field, ionization, D 4 x "
+        f"async_n 4): 3 steps, point 2 from the second, ms/step "
+        f"{[round(t, 3) for t in times]}, ionized {ionized}, pairs exact, "
+        f"overflow 0, launches a step {engine_launches(ecfg)}, no build "
+        f"after the first step")
+    del state
+    torch.cuda.empty_cache()
+    return launches(counters)
+
+
+def serve_launcher(counters):
+    """(e) ``pic_run --ensemble 8 --steps 5 --strategy fused`` at its
+    defaults: the reference launcher's lines, 16 sessions of 5 steps, one
+    fused and one deposit launch a member step."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import pic_run
+
+    argv = SERVE_ARGV
+    reset_launches(counters)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pic_run.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    got = launches(counters)
+    sessions = [SERVE_LINE.fullmatch(ln) for ln in lines[:-1]]
+    last = SERVE_LAST.fullmatch(lines[-1])
+    if (len(lines) != 17 or not all(sessions) or not last
+            or last.groups()[:3] != ("16", "5", "8")
+            or any(m.group(3) != "5" for m in sessions)
+            or got["fused_push_deposit"] != 80 or got["deposit"] != 80):
+        raise AssertionError(f"(e) pic_run {' '.join(argv)}: lines {lines}, "
+                             f"launches {got}")
+    for ln in (lines[0], lines[-1]):
+        log(f"phase 12 (e) pic_run {' '.join(argv)}: {ln}")
+    log(f"phase 12 (e) launches {got}")
+    return got
+
+
+def serve_phase(dev, solo_ms):
+    """Phase 12: runtime parameters and the serving layer on the card;
+    returns (launches summed over its paths, numbers)."""
+    from repro_torch.configs.pic_bit1 import make_config
+    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+
+    t_start = time.perf_counter()
+    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
+                "mover_push": mover.mover_push, "deposit": deposit.deposit,
+                "ta_kick": collide.ta_kick}
+    cfg = make_config(mover_strategy="fused")
+    solo = expected(deposit.deposit_form(cfg.nc + 1), fused=1, deposit=1)
+    paths, numbers = serve_section(dev, cfg, solo, solo_ms, counters)
+    paths["collisions"] = collision_serve(dev, counters)
+    paths.update(bitwise_section(dev, counters))
+    paths["card_vs_cpu"] = ensemble_card_vs_cpu(dev, counters)
+    paths["engine_params"] = engine_params_section(dev, counters)
+    paths["pic_run"] = serve_launcher(counters)
+    counts = {name: sum(p[name] for p in paths.values())
+              for name in PIC_KERNELS}
+    # the mover kernel serves 'explicit' only, which refuses params
+    for name in ("fused_push_deposit", "deposit", "ta_kick"):
+        if counts[name] <= 0:
+            raise AssertionError(f"phase 12: {name} never launched")
+    numbers["seconds"] = time.perf_counter() - t_start
+    log(f"phase 12: {numbers['seconds']:.1f} s, launches summed over its "
+        f"paths {counts}")
+    return counts, numbers
+
+
 # ---------------------------------------------------------------- phase 7 --
 
 def rel_err(got, want) -> float:
@@ -2883,8 +3346,9 @@ def main() -> int:
     collision_card_vs_cpu_phase(dev)
     engine_counts, eng = engine_phase(dev)
     obs_counts, obs = obs_phase(dev)
-    for k in ("fused_push_deposit", "mover_push", "deposit", "ta_kick"):
-        counts[k] += engine_counts[k] + obs_counts[k]
+    serve_counts, serve = serve_phase(dev, ms["fused"])
+    for k in PIC_KERNELS:
+        counts[k] += engine_counts[k] + obs_counts[k] + serve_counts[k]
     kernels["flash_attention"] = flash_phase(dev)
     counts["flash_attention"], lm = lm_serve_phase(dev)
     lm_card_vs_cpu_phase(dev)
@@ -2913,6 +3377,11 @@ def main() -> int:
         f"{ckn['restore_s']:.2f} s, elastic restores "
         f"{ {d: round(v, 2) for d, v in obs['elastic_s'].items()} } s; "
         f"retunes {obs['retunes']}; phase {obs['seconds']:.1f} s")
+    log(f"runtime params and serving (§3.3, W {SERVE_WIDTH}): host ms an "
+        f"ensemble step {serve['ensemble_ms']:.3f} against "
+        f"{SERVE_WIDTH} x the solo step {SERVE_WIDTH * serve['solo_ms']:.3f}"
+        f", peak memory {serve['peak_gib']:.2f} GiB; phase "
+        f"{serve['seconds']:.1f} s")
     log(f"LM {LM_ARCH}: prefill 8 x 4096 {lm['prefill_ms']:.3f} ms "
         f"({lm['prefill_tok_s']:.0f} tok/s), decode {lm['decode_ms']:.3f} "
         f"ms/step at batch 4 ({lm['decode_tok_s']:.1f} tok/s), decode vs "

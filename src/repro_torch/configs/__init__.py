@@ -31,7 +31,7 @@ def _module(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 14, "
+            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 6, "
             f"the LM substrate); ported: {PORTED}")
     name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")

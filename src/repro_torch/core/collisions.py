@@ -465,28 +465,32 @@ def apply_menu(gen: torch.Generator, bufs: dict[int, SpeciesBuffer],
                cfgs: Sequence[CollisionConfig],
                dens: dict[int, torch.Tensor], grid: Grid1D, dt: float,
                use_kernel: bool = False,
-               draws: Sequence[dict] | None = None
+               draws: Sequence[dict] | None = None,
+               rates: Sequence[torch.Tensor] | None = None
                ) -> tuple[dict[int, SpeciesBuffer], dict]:
     """Run a collision menu, in order, over species buffers (index ->
     buffer). ``dens`` maps the menu's ``density_species`` to their (nc,)
     cell densities. ``draws``: one dict per menu entry, in menu order.
-    Returns (bufs, diag) with one event counter per kind."""
+    ``rates`` (optional, one 0-d tensor per menu entry) replaces the
+    entries' ``cc.rate``: the runtime-parameter path. Returns (bufs, diag)
+    with one event counter per kind."""
     bufs = dict(bufs)
     diag: dict = {}
     for k_i, cc in enumerate(cfgs):
         d = None if draws is None else draws[k_i]
+        rate = cc.rate if rates is None else rates[k_i]
         if cc.kind == "elastic":
             out, n = elastic_scatter(gen, bufs[cc.species], dens[cc.partner],
-                                     grid, cc.rate, dt, d)
+                                     grid, rate, dt, d)
             bufs[cc.species] = out
         elif cc.kind == "charge_exchange":
             bi, bn, n = charge_exchange(gen, bufs[cc.species],
                                         bufs[cc.partner], dens[cc.partner],
-                                        grid, cc.rate, dt, d)
+                                        grid, rate, dt, d)
             bufs[cc.species], bufs[cc.partner] = bi, bn
         else:
             out, n = coulomb_intra(gen, bufs[cc.species], dens[cc.species],
-                                   grid, cc.rate, dt, use_kernel, d)
+                                   grid, rate, dt, use_kernel, d)
             bufs[cc.species] = out
         k = _KIND_DIAG[cc.kind]
         diag[k] = diag[k] + n if k in diag else n

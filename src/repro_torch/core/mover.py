@@ -113,12 +113,17 @@ def _push_core(x, v, alive, e, grid: Grid1D, qm_dt, dt, b, boundary,
 
 
 def push_unified(buf: SpeciesBuffer, e: torch.Tensor, grid: Grid1D,
-                 qm: float, dt: float, b=(0.0, 0.0, 0.0),
+                 qm: float, dt, b=(0.0, 0.0, 0.0),
                  boundary: Boundary = "periodic",
-                 gather_mode: str = "take") -> PushResult:
-    """Plain PyTorch mover (the 'unified' strategy)."""
+                 gather_mode: str = "take",
+                 qm_dt: torch.Tensor | None = None) -> PushResult:
+    """Plain PyTorch mover (the 'unified' strategy). ``qm_dt`` (optional)
+    replaces the host product ``qm * dt``: the runtime-parameter path hands
+    it in formed on the host, so the step stays bit-identical to the
+    static one."""
     x, v, alive, hl, hr = _push_core(buf.x, buf.v, buf.alive, e, grid,
-                                     qm * dt, dt, b, boundary, gather_mode)
+                                     qm * dt if qm_dt is None else qm_dt,
+                                     dt, b, boundary, gather_mode)
     diag = _wall_diag(v, buf.w, hl, hr)
     out = dataclasses.replace(buf, x=x, v=v, alive=alive, w=buf.w * alive)
     return PushResult(out, hl, hr, diag)
@@ -137,27 +142,37 @@ def push_explicit(buf: SpeciesBuffer, e: torch.Tensor, grid: Grid1D,
 
 
 def push_fused(buf: SpeciesBuffer, e: torch.Tensor, grid: Grid1D, qm: float,
-               dt: float, b=(0.0, 0.0, 0.0), boundary: Boundary = "periodic",
+               dt, b=(0.0, 0.0, 0.0), boundary: Boundary = "periodic",
                gather_mode: str = "take",
                deposit_charge: float | None = None,
-               rho_carry: torch.Tensor | None = None) -> PushResult:
+               rho_carry: torch.Tensor | None = None,
+               qm_dt: torch.Tensor | None = None) -> PushResult:
     """Single-pass push + deposit (the 'fused' strategy): the fused kernel
     with one species. With ``deposit_charge``, the post-push charge density
     ``deposit_charge * w * alive`` (plus ``rho_carry``) lands in
-    ``PushResult.rho``. The kernel's gather is CIC; ``gather_mode`` is
-    accepted for the reference's signature."""
+    ``PushResult.rho``. ``dt`` is a float or a 0-d tensor; ``qm_dt``
+    (optional) replaces ``qm * dt``, as in ``push_unified``. The kernel's
+    gather is CIC; ``gather_mode`` is accepted for the reference's
+    signature."""
     del gather_mode
-    dev, f32 = buf.x.device, torch.float32
+    dev = buf.x.device
     x, v, alive, hl, hr, w, rho = ops.fused_push_deposit(
         buf.x[None], buf.v[None], buf.w[None], buf.alive[None], e,
-        torch.tensor([qm * dt], dtype=f32, device=dev),
-        torch.tensor([dt], dtype=f32, device=dev),
-        torch.tensor([deposit_charge or 0.0], dtype=f32, device=dev),
-        rho_carry, x0=grid.x0, dx=grid.dx, nc=grid.nc, length=grid.length,
+        _vec1(qm * dt if qm_dt is None else qm_dt, dev), _vec1(dt, dev),
+        _vec1(deposit_charge or 0.0, dev), rho_carry, x0=grid.x0,
+        dx=grid.dx, nc=grid.nc, length=grid.length,
         b=b, boundary=boundary, deposit=deposit_charge is not None)
     diag = _wall_diag(v[0], buf.w, hl[0], hr[0])
     out = SpeciesBuffer(x=x[0], v=v[0], w=w[0], alive=alive[0])
     return PushResult(out, hl[0], hr[0], diag, rho)
+
+
+def _vec1(a, dev) -> torch.Tensor:
+    """A float or 0-d tensor as the (1,) float32 tensor the fused kernel
+    takes a per-species scalar in."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=dev, dtype=torch.float32).reshape(1)
+    return torch.tensor([a], dtype=torch.float32, device=dev)
 
 
 def push_async_batched(buf: SpeciesBuffer, e: torch.Tensor, grid: Grid1D,

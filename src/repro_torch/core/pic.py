@@ -30,6 +30,7 @@ from repro_torch.core import collisions, diagnostics, fields, mover
 from repro_torch.core.boundaries import EmissionParams, wall_emission
 from repro_torch.core.grid import (Grid1D, deposit, deposit_stacked,
                                    deposit_windowed)
+from repro_torch.core.params import RuntimeParams, b_active
 from repro_torch.core.particles import (SpeciesBuffer, init_uniform,
                                         stack_species, unstack_species)
 from repro_torch.device import resolve_device
@@ -233,9 +234,40 @@ def compute_field(cfg: PICConfig,
     return field_from_rho(cfg, compute_rho(cfg, species))
 
 
-def _push_all(state: PICState, cfg: PICConfig, e: torch.Tensor):
+def _b_arg(cfg: PICConfig, rp: RuntimeParams | None):
+    """b for the push: the params' host triple when the config rotates at
+    all, the config's (all zero: no rotation) otherwise."""
+    if rp is not None and b_active(cfg):
+        return rp.b_host
+    return cfg.b_field
+
+
+def _check_params(cfg: PICConfig, rp: RuntimeParams | None) -> None:
+    """The strategies that refuse runtime parameters, as the reference's
+    do: 'explicit' (its TPU kernel bakes dt and q/m in) and
+    'async_batched' (its batched loop could not hold the bitwise
+    contract)."""
+    if rp is None:
+        return
+    if cfg.strategy == "explicit":
+        raise NotImplementedError(
+            "strategy='explicit' routes through the mover kernel, which the "
+            "reference bakes dt/qm into; runtime parameters are not "
+            "supported there — use 'unified' or 'fused'")
+    if cfg.strategy == "async_batched":
+        raise NotImplementedError(
+            "strategy='async_batched' cannot take runtime parameters "
+            "bitwise-safely in the reference (its batched loop contracts "
+            "the kick differently for a literal and a traced scalar) — use "
+            "'unified' or 'fused'")
+
+
+def _push_all(state: PICState, cfg: PICConfig, e: torch.Tensor,
+              rp: RuntimeParams | None = None):
     """Push every species exactly once; returns (species list,
-    per-species (hit_l, hit_r) masks, diag dict, fused rho | None)."""
+    per-species (hit_l, hit_r) masks, diag dict, fused rho | None).
+    ``rp`` supplies dt*stride, (q/m)*dt*stride and b in place of the
+    config's."""
     grid = cfg.grid
     diag: dict = {}
     hits = []
@@ -248,13 +280,16 @@ def _push_all(state: PICState, cfg: PICConfig, e: torch.Tensor):
         dtype = st.x.dtype
         qm = torch.tensor([sc.charge / sc.mass for sc in cfg.species],
                           dtype=dtype, device=dev)
-        dts = torch.tensor([cfg.dt * sc.stride for sc in cfg.species],
-                           dtype=dtype, device=dev)
+        # q/m*dt is formed on the device from dts on both paths, as the
+        # reference's push_stacked does: it never reads rp.qm_dts
+        dts = (torch.tensor([cfg.dt * sc.stride for sc in cfg.species],
+                            dtype=dtype, device=dev)
+               if rp is None else rp.dts.to(dtype))
         charges = (torch.tensor([sc.charge for sc in cfg.species],
                                 dtype=dtype, device=dev)
                    if carried else None)
         out, hl, hr, pdiag, new_rho = mover.push_stacked(
-            st, e, grid, qm, dts, b=cfg.b_field, boundary=cfg.boundary,
+            st, e, grid, qm, dts, b=_b_arg(cfg, rp), boundary=cfg.boundary,
             gather_mode=cfg.gather_mode, charges=charges)
         strides = [sc.stride for sc in cfg.species]
         if any(s > 1 for s in strides):
@@ -281,17 +316,20 @@ def _push_all(state: PICState, cfg: PICConfig, e: torch.Tensor):
 
     # per-species loop: explicit / async_batched, or unequal capacities
     species = []
-    for sc, buf in zip(cfg.species, state.species):
+    for si, (sc, buf) in enumerate(zip(cfg.species, state.species)):
         qm = sc.charge / sc.mass
-        kw = dict(b=cfg.b_field, boundary=cfg.boundary)
+        dt_s = cfg.dt * sc.stride if rp is None else rp.dts[si]
+        kw = dict(b=_b_arg(cfg, rp), boundary=cfg.boundary)
+        if rp is not None:
+            kw["qm_dt"] = rp.qm_dts[si]
         if cfg.strategy == "async_batched":
             kw["num_batches"] = cfg.num_batches
         if cfg.strategy != "explicit":
             kw["gather_mode"] = cfg.gather_mode
         if cfg.strategy == "fused" and carried and sc.charge != 0.0:
             kw["deposit_charge"] = sc.charge    # neutrals deposit nothing
-        res = mover.push(buf, e, grid, qm, cfg.dt * sc.stride,
-                         strategy=cfg.strategy, **kw)
+        res = mover.push(buf, e, grid, qm, dt_s, strategy=cfg.strategy,
+                         **kw)
         pushed, hl, hr, d = res.buf, res.hit_left, res.hit_right, res.diag
         if res.rho is not None:
             new_rho = res.rho if new_rho is None else new_rho + res.rho
@@ -307,12 +345,18 @@ def _push_all(state: PICState, cfg: PICConfig, e: torch.Tensor):
 
 
 def step_fn(state: PICState, cfg: PICConfig,
+            params: RuntimeParams | None = None,
             draws: Sequence[dict] | None = None) -> tuple[PICState, dict]:
-    """One PIC cycle. ``draws`` (optional) replaces the generator for the
-    Monte-Carlo phases: one dict per phase in the reference's key order
+    """One PIC cycle. ``params`` (optional) supplies the runtime scalars
+    (dt, b, the source and collision coefficients) in place of the
+    config's; the two are bit-identical for equal values (see
+    ``core/params.py``). ``draws`` (optional) replaces the generator for
+    the Monte-Carlo phases: one dict per phase in the reference's key order
     (each collision-menu entry, each wall-emission pair, then ionization),
     each with the arrays that phase would draw (see ``collisions`` and
     ``boundaries``)."""
+    rp = params
+    _check_params(cfg, rp)
     grid = cfg.grid
     dev = state.species[0].x.device
     carried = _carries_rho(cfg)
@@ -328,7 +372,7 @@ def step_fn(state: PICState, cfg: PICConfig,
     else:
         e = compute_field(cfg, state.species)
 
-    species, hits, diag, new_rho = _push_all(state, cfg, e)
+    species, hits, diag, new_rho = _push_all(state, cfg, e, rp)
 
     if cfg.collisions:
         # rates from the start-of-step cell densities; pairing and
@@ -341,14 +385,16 @@ def step_fn(state: PICState, cfg: PICConfig,
         menu_draws = (None if draws is None else
                       [next_draws() for _ in cfg.collisions])
         bufs, cdiag = collisions.apply_menu(
-            state.gen, bufs, cfg.collisions, dens, grid, cfg.dt,
-            cfg.collide_kernel, menu_draws)
+            state.gen, bufs, cfg.collisions, dens, grid,
+            cfg.dt if rp is None else rp.dt, cfg.collide_kernel, menu_draws,
+            rates=None if rp is None else rp.collision_rates)
         for i, b in bufs.items():
             species[i] = b
         diag.update(cdiag)
 
     if cfg.wall_emission and cfg.boundary == "absorb":
-        eparams = EmissionParams(yield_=cfg.emission_yield,
+        eparams = EmissionParams(yield_=(cfg.emission_yield if rp is None
+                                         else rp.emission_yield),
                                  vth_emit=cfg.emission_vth,
                                  weight=cfg.emission_weight)
         for primary, target in cfg.wall_emission:
@@ -367,10 +413,11 @@ def step_fn(state: PICState, cfg: PICConfig,
     if cfg.ionization is not None:
         ni, ei, ii = cfg.ionization
         iparams = collisions.IonizationParams(
-            rate=cfg.ionization_rate, vth_electron=cfg.ionization_vth_e)
+            rate=cfg.ionization_rate if rp is None else rp.ionization_rate,
+            vth_electron=cfg.ionization_vth_e)
         neu, ele, ion, d, births = collisions.ionize(
             state.gen, species[ni], species[ei], species[ii], grid, iparams,
-            cfg.dt, draws=next_draws())
+            cfg.dt if rp is None else rp.dt, draws=next_draws())
         species[ni], species[ei], species[ii] = neu, ele, ion
         if carried and new_rho is not None:
             # one deposit for both halves of every born pair; the killed
@@ -401,19 +448,68 @@ def step_fn(state: PICState, cfg: PICConfig,
     return out, diag
 
 
+def diag_spec(cfg: PICConfig) -> dict[str, torch.dtype]:
+    """The keys and dtypes of ``step_fn``'s diagnostics for ``cfg``, in
+    its order, without running a step; every value is 0-d."""
+    i32, f32 = torch.int32, torch.float32
+    spec: dict = {}
+    for sc in cfg.species:
+        spec.update({f"{sc.name}/absorbed_left": i32,
+                     f"{sc.name}/absorbed_right": i32,
+                     f"{sc.name}/power_left": f32,
+                     f"{sc.name}/power_right": f32})
+    for cc in cfg.collisions:
+        spec[collisions._KIND_DIAG[cc.kind]] = i32
+    if cfg.wall_emission and cfg.boundary == "absorb":
+        for _, target in cfg.wall_emission:
+            name = cfg.species[target].name
+            spec.update({f"{name}/emitted": i32,
+                         f"{name}/emission_dropped": i32})
+    if cfg.ionization is not None:
+        spec.update({"n_ionized": i32, "ionize_dropped": i32,
+                     "birth_overflow": i32})
+    for sc in cfg.species:
+        spec.update({f"{sc.name}/count": i32, f"{sc.name}/ke": f32})
+    if cfg.field_solve:
+        spec["field_energy"] = f32
+    return spec
+
+
+def zero_state(cfg: PICConfig, device="cuda") -> PICState:
+    """A state of ``cfg``'s shapes holding zeros (no live particle), with
+    a generator seeded 0: a parked slot before its first member."""
+    dev = resolve_device(device)
+    bufs = tuple(SpeciesBuffer(
+        x=torch.zeros(sc.capacity, device=dev),
+        v=torch.zeros(sc.capacity, 3, device=dev),
+        w=torch.zeros(sc.capacity, device=dev),
+        alive=torch.zeros(sc.capacity, dtype=torch.bool, device=dev))
+        for sc in cfg.species)
+    rho = (torch.zeros(cfg.grid.ng, device=dev) if _carries_rho(cfg)
+           else None)
+    return PICState(species=bufs,
+                    gen=torch.Generator(device=dev).manual_seed(0), step=0,
+                    rho=rho)
+
+
 def make_step(cfg: PICConfig):
-    """``step(state, draws=None) -> (state, diag)`` for a fixed config."""
-    def step(state: PICState, draws: Sequence[dict] | None = None):
-        return step_fn(state, cfg, draws)
+    """``step(state, params=None, draws=None) -> (state, diag)`` for a
+    fixed config: pass a ``RuntimeParams`` to take the runtime scalars
+    from it, omit it to take the config's."""
+    def step(state: PICState, params: RuntimeParams | None = None,
+             draws: Sequence[dict] | None = None):
+        return step_fn(state, cfg, params, draws)
 
     return step
 
 
 def run(cfg: PICConfig, steps: int, seed: int = 0,
         state: PICState | None = None,
+        params: RuntimeParams | None = None,
         device="cuda") -> tuple[PICState, dict]:
     """Run ``steps`` steps; returns the final state and the diagnostics
-    stacked over steps. ``device`` applies when no ``state`` is given."""
+    stacked over steps. ``device`` applies when no ``state`` is given;
+    ``params`` as in ``step_fn``."""
     if state is None:
         state = init_state(cfg, seed, device)
     if _carries_rho(cfg) and state.rho is None:
@@ -422,7 +518,7 @@ def run(cfg: PICConfig, steps: int, seed: int = 0,
             state, rho=compute_rho(cfg, state.species))
     diags = []
     for _ in range(steps):
-        state, d = step_fn(state, cfg)
+        state, d = step_fn(state, cfg, params)
         diags.append(d)
     stacked = ({k: torch.stack([d[k] for d in diags]) for k in diags[0]}
                if diags else {})

@@ -68,8 +68,12 @@ holds the reference's keys, shapes and dtypes; ``state_shape`` and
 typed restore, ``state_from_tree`` rebuilds the state; ``resplit_host`` and
 ``elastic_state`` are the elastic restore onto another domain count;
 ``retarget_state`` carries a state across a knob change of the auto-tuner.
-``make_engine_step(with_params=True)`` raises ``NotImplementedError``: it
-belongs to ``ROADMAP.md`` queue 1 item 5.
+
+``make_engine_step(with_params=True)`` builds ``step(state, params,
+draws=None)``: one ``RuntimeParams`` (``core/params.py``) serves every
+domain, as the reference replicates it, and supplies dt, b, the source
+coefficients and the collision rates; equal values are bit-identical to
+the static step.
 """
 
 from __future__ import annotations
@@ -89,7 +93,9 @@ from repro_torch.core.particles import (FreeSlotRing, SpeciesBuffer,
                                         put_rows_, ring_claim,
                                         ring_from_counts, ring_init,
                                         ring_push)
+from repro_torch.core.params import RuntimeParams
 from repro_torch.core.pic import PICConfig, PICState
+from repro_torch.core.pic import _b_arg
 from repro_torch.core.pic import _carries_rho as pic_carries_rho
 from repro_torch.device import resolve_device
 from repro_torch.distributed import halo
@@ -98,8 +104,6 @@ from repro_torch.obs.tracing import phase_scope
 # cumulative phase checkpoints of the probes (see perf.py): a step built
 # with upto=<phase> runs the pipeline through that phase and returns
 PHASES = ("ingest", "field", "push", "collide", "migrate", "merge", "full")
-
-_ROADMAP = "ROADMAP.md queue 1 item {}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -508,6 +512,11 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
     The full step donates its input state unless ``donate=False``; the
     probes never do.
 
+    ``with_params=True`` builds ``step(state, params, draws=None)``: the
+    ``RuntimeParams`` ``params`` supplies dt, b, the ionization rate, the
+    SEE yield and the collision rates to every domain in place of the
+    config's. Equal values give the static step's results bit for bit.
+
     ``draws`` (optional) replaces the per-domain generators: one dict per
     domain with ``"ionize"`` (per queue, the ``ionization_events`` arrays
     of the queue's neutral slice), ``"see"`` (per wall-emission pair, per
@@ -515,10 +524,6 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
     ``"collide"`` (per queue, a dict group -> the menu draws of the
     group's entries), as the reference derives them from its keys.
     """
-    if with_params:
-        raise NotImplementedError(
-            "with_params (runtime parameters) is not ported yet: "
-            + _ROADMAP.format(5))
     if upto not in PHASES:
         raise ValueError(f"upto must be one of {PHASES}, got {upto!r}")
     cfg = ecfg.pic
@@ -556,25 +561,38 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                 f"collision {cc.kind!r} pairs species {names} across "
                 f"capacity groups; give them equal capacities to run on "
                 f"the engine")
-    iparams = (collisions.IonizationParams(
-        rate=cfg.ionization_rate, vth_electron=cfg.ionization_vth_e)
-        if ion is not None else None)
-    eparams = (boundaries.EmissionParams(
-        yield_=cfg.emission_yield, vth_emit=cfg.emission_vth,
-        weight=cfg.emission_weight) if see_pairs else None)
     strides = [sc.stride for sc in cfg.species]
+    # the menu entries of each capacity group, by their menu index
+    g_menu = [[k_m for k_m, cc in enumerate(coll) if loc[cc.species][0] == g]
+              for g in range(len(groups))]
     consts: dict = {}          # device -> per-group (qm, dts, charges)
+    sel: dict = {}             # device -> per-group index of its species
     streams: dict = {}         # device -> {(domain, queue): stream}
 
-    def step(state: EngineState, draws=None):
+    def step(state: EngineState, rp: RuntimeParams | None, draws=None):
         dev = state.groups[0].x.device
         card = dev.type == "cuda"
         if dev not in consts:
             consts[dev] = [_group_consts(cfg, idxs, dev) for idxs in groups]
+            sel[dev] = [torch.tensor(idxs, device=dev) for idxs in groups]
             if card:
                 streams[dev] = {(r, k): torch.cuda.Stream(dev)
                                 for r in range(d) for k in range(n_q)}
         gconsts = consts[dev]
+        if rp is not None:
+            # the params' dt*stride in place of the config's; q/m*dt is
+            # formed on the device from them on both paths
+            gconsts = [(qm, rp.dts.index_select(0, ix), ch)
+                       for (qm, _, ch), ix in zip(gconsts, sel[dev])]
+        dt = cfg.dt if rp is None else rp.dt
+        b = _b_arg(cfg, rp)
+        iparams = (collisions.IonizationParams(
+            rate=cfg.ionization_rate if rp is None else rp.ionization_rate,
+            vth_electron=cfg.ionization_vth_e) if ion is not None else None)
+        eparams = (boundaries.EmissionParams(
+            yield_=cfg.emission_yield if rp is None else rp.emission_yield,
+            vth_emit=cfg.emission_vth, weight=cfg.emission_weight)
+            if see_pairs else None)
 
         def on(r, k):
             return (torch.cuda.stream(streams[dev][(r, k)]) if card
@@ -736,7 +754,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                         q = _queue_slice(st, n_q, k)
                         with phase_scope(f"engine/push/q{k}"):
                             out, _, _, pdiag, rho_k = mover.push_stacked(
-                                q, e[r], grid_local, qm, dts, b=cfg.b_field,
+                                q, e[r], grid_local, qm, dts, b=b,
                                 boundary="open", gather_mode=cfg.gather_mode,
                                 charges=charges if carried else None)
                             if any(strides[i] > 1 for i in idxs):
@@ -765,8 +783,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                             continue
 
                         # ---- binary collisions on this queue ----
-                        g_coll = [cc for cc in coll
-                                  if loc[cc.species][0] == g]
+                        g_coll = [coll[k_m] for k_m in g_menu[g]]
                         if g_coll:
                             with phase_scope(f"engine/collide/q{k}"):
                                 rows_c = collisions.involved_species(g_coll)
@@ -780,8 +797,10 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                                           else dr["collide"][k][g])
                                 cbufs, cdiag = collisions.apply_menu(
                                     gen, cbufs, g_coll, coll_dens[r],
-                                    grid_local, cfg.dt, cfg.collide_kernel,
-                                    cdraws)
+                                    grid_local, dt, cfg.collide_kernel,
+                                    cdraws, rates=None if rp is None else
+                                    [rp.collision_rates[k_m]
+                                     for k_m in g_menu[g]])
                                 for i, cb in cbufs.items():
                                     out.v[idxs.index(i)] = cb.v
                                 for ck, cv in cdiag.items():
@@ -806,7 +825,7 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                                     x=out.x[jn], v=out.v[jn], w=out.w[jn],
                                     alive=out.alive[jn])
                                 pack = collisions.ionize_packed(
-                                    gen, qn, grid_local, iparams, cfg.dt,
+                                    gen, qn, grid_local, iparams, dt,
                                     ne[r], b_q,
                                     None if dr is None else dr["ionize"][k])
 
@@ -978,7 +997,17 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                         :, j].sum(dtype=torch.int32)
         return pack_state(rho_out, pend_out), diag
 
-    return step
+    if with_params:
+        def step_params(state: EngineState, params: RuntimeParams,
+                        draws=None):
+            return step(state, params, draws)
+
+        return step_params
+
+    def step_static(state: EngineState, draws=None):
+        return step(state, None, draws)
+
+    return step_static
 
 
 def _sum64(mask: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ build takes seconds. The build runs at the first CUDA launch, never at
 import, into ``build/repro_torch/<hash>/`` of the checkout, where the hash
 covers every file of ``csrc/`` and the flags: an edited source builds anew,
 an unchanged one is reused. All sources compile at once, one ``nvcc``
-process each.
+process each. ``BUILD_ROOT`` may be pointed elsewhere
+(``serve.enable_compilation_cache``) so that a new worker reuses the
+libraries another process built; ``builds`` counts the sources this
+process compiled.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_seconds: float | None = None
+builds = 0             # nvcc compilations run by this process
 
 
 def _nvcc() -> str:
@@ -59,13 +63,14 @@ def build() -> Path:
     """Compile every source that has no library yet, all in parallel.
     Returns the directory of the libraries; raises with nvcc's output on a
     failed build. ``build_seconds`` records the wall time of the build."""
-    global build_seconds
+    global build_seconds, builds
     out = build_dir()
     todo = [n for n in SOURCES if not (out / f"lib{n}.so").exists()]
     t0 = time.perf_counter()
     if todo:
         out.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
+        builds += len(todo)
         procs = {}
         for name in todo:
             tmp = out / f"lib{name}.so.{os.getpid()}.tmp"

@@ -9,7 +9,8 @@ multi-domain.
         [--field-solve] [--see-yield Y] [--collisions elastic,cx,coulomb] \
         [--diag-every K] [--phases] [--device cuda|cpu] \
         [--profile-dir DIR] [--metrics-jsonl FILE] [--autotune] \
-        [--ckpt-dir DIR --ckpt-every K] [--resume] [--fail-at-step N]
+        [--ckpt-dir DIR --ckpt-every K] [--resume] [--fail-at-step N] \
+        [--ensemble W]
 
 The scenario is ``configs/pic_bit1.make_bench_config(nc, particles)``
 (buffers hold twice the initial particles); --see-yield Y switches the walls
@@ -43,6 +44,13 @@ matches the save, elastic re-split otherwise); --fail-at-step N injects a
 simulated failure at step N — the restart drill is to re-run the same
 command with --resume. These flags force the engine path and exclude
 --autotune.
+
+Simulation-as-a-service (``repro_torch.serve``): --ensemble W serves a
+sweep of 2W sessions, a dt x ionization-rate grid, through a width-W
+``SimService`` (slots reused as sessions finish), prints one line a
+session and the server's stats, and fails if a kernel was built after the
+first step. It runs one domain and excludes the engine, checkpoint and
+auto-tuner flags.
 """
 
 from __future__ import annotations
@@ -102,6 +110,10 @@ def main(argv=None) -> None:
     ap.add_argument("--autotune", action="store_true",
                     help="retune the engine knobs online from the metrics "
                          "stream (engine path)")
+    ap.add_argument("--ensemble", type=int, default=0, metavar="W",
+                    help="serve a width-W parameter sweep through the "
+                         "ensemble engine instead of one run "
+                         "(simulation-as-a-service demo; one domain)")
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint the engine state into this directory "
                          "(async write; engine path)")
@@ -122,6 +134,11 @@ def main(argv=None) -> None:
         ap.error("--autotune cannot be combined with the checkpoint flags "
                  "(the knob retunes would change the state's layout "
                  "mid-run)")
+    if args.ensemble and (args.domains > 1 or args.async_n > 1 or resilient
+                          or args.autotune):
+        ap.error("--ensemble is the single-device serving demo; it excludes "
+                 "--domains/--async-n > 1, the checkpoint flags and "
+                 "--autotune")
 
     import torch
 
@@ -151,6 +168,9 @@ def main(argv=None) -> None:
                                   collisions=make_collision_menu(menu))
 
     dev = pic.resolve_device(args.device)
+    if args.ensemble:
+        _serve_ensemble(cfg, args, dev)
+        return
     want_stream = bool(args.metrics_jsonl or args.autotune)
     profile_dir = args.profile_dir or None
     t0 = time.perf_counter()
@@ -280,6 +300,38 @@ def main(argv=None) -> None:
                   f"total={probe['total']:.1f}")
             for flag in probe["flags"]:
                 print("probe flag:", flag)
+
+
+def _serve_ensemble(cfg, args, dev) -> None:
+    """The --ensemble path: 2W sessions on a dt x ionization-rate grid
+    through one width-W SimService, in the reference launcher's lines."""
+    from repro_torch.serve import SimService
+
+    w = args.ensemble
+    svc = SimService(cfg, width=w, device=dev)
+    t0 = time.perf_counter()
+    sids = []
+    for i in range(2 * w):
+        # every session is its own parameter point
+        sids.append(svc.submit(
+            {"dt": cfg.dt * (1.0 + 0.1 * (i % w)),
+             "ionization_rate": cfg.ionization_rate * (1 + i)},
+            seed=i, steps=args.steps))
+    svc.step(1)
+    built = svc.stats()["compiles"]
+    svc.run_until_drained()
+    wall = time.perf_counter() - t0
+    for sid in sids:
+        p = svc.poll(sid)
+        kes = {k: float(v.sum()) for k, v in sorted(p["diag"].items())
+               if k.endswith("/ke")}
+        print(f"session {sid}: slot={p['slot']} "
+              f"steps={p['steps_done']} ke={kes}")
+    st = svc.stats()
+    print(f"{len(sids)} sessions x {args.steps} steps, width="
+          f"{w}: {wall:.2f}s — stats {st}")
+    # the serving contract: nothing builds after the first step
+    assert st["compiles"] == built, st
 
 
 if __name__ == "__main__":

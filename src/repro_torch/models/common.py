@@ -17,8 +17,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-# the families and options the port does not run yet: ROADMAP queue 1, item 14
-NOT_PORTED = "not ported yet (ROADMAP queue 1, item 14, the LM substrate)"
+# the families and options the port does not run yet: ROADMAP queue 1, item 6
+NOT_PORTED = "not ported yet (ROADMAP queue 1, item 6, the LM substrate)"
 
 
 @dataclasses.dataclass(frozen=True)

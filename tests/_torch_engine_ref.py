@@ -3,10 +3,13 @@ engine on emulated host devices and writes each case's states and
 diagnostics, step by step, to an npz file.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-        python tests/_torch_engine_ref.py OUT.npz
+        python tests/_torch_engine_ref.py OUT.npz [--params]
 
 The port side reads the file; the reference's keys in it give the random
-draws (``_torch_parity.engine_draws``).
+draws (``_torch_parity.engine_draws``). With ``--params`` it runs the
+reference's ``make_engine_step(with_params=True)`` instead, on
+``PARAMS_CASE`` at ``PARAMS_POINT`` and the samples ``PARAMS_SAMPLES``
+(``tests/test_torch_params.py``).
 """
 
 import sys
@@ -40,6 +43,24 @@ def case_config(pic, name):
 
 
 CASES = ("periodic_field", "absorb_see_ionize")
+
+# the runtime-parameter run: the absorbing case with the collision menu and
+# a magnetic field on, stepped at a parameter point other than its own
+PARAMS_CASE = "absorb_see_ionize_menu"
+PARAMS_SAMPLES = ((1, 1), (2, 2))
+PARAMS_POINT = dict(dt=0.3, ionization_rate=8e-2, emission_yield=0.5,
+                    b_field=(0.0, 0.0, 0.08),
+                    collision_rates=(4e-2, 3e-2, 2e-2))
+
+
+def params_config(pic, cfgs):
+    """``PARAMS_CASE`` on either package's ``pic`` and ``configs.pic_bit1``
+    (``cfgs``)."""
+    import dataclasses
+
+    return dataclasses.replace(case_config(pic, "absorb_see_ionize"),
+                               collisions=cfgs.make_collision_menu(),
+                               b_field=(0.0, 0.01, 0.05))
 
 
 def export(est):
@@ -86,5 +107,39 @@ def main(path):
     np.savez(path, **arrays)
 
 
+def main_params(path):
+    from repro.configs import pic_bit1
+    from repro.core import pic
+    from repro.core.params import runtime_params
+    from repro.distributed import engine
+    from repro.launch.mesh import make_debug_mesh
+
+    cfg = params_config(pic, pic_bit1)
+    point = dict(PARAMS_POINT)
+    rp = runtime_params(cfg, collision_rates=point.pop("collision_rates"),
+                        **point)
+    arrays = {}
+    for d, an in PARAMS_SAMPLES:
+        mesh = make_debug_mesh(data=d, model=1)
+        ecfg = engine.EngineConfig(
+            pic=cfg, axis_names=("data",), async_n=an,
+            max_migration=MAX_MIGRATION, max_births=MAX_BIRTHS)
+        est = engine.init_engine_state(ecfg, mesh, SEED)
+        step = engine.make_engine_step(ecfg, mesh, with_params=True)
+        tag = f"{PARAMS_CASE}/{d}x{an}"
+        for t in range(STEPS + 1):
+            for k, v in export(est).items():
+                arrays[f"{tag}/s{t}/{k}"] = v
+            if t == STEPS:
+                break
+            est, diag = step(est, rp)
+            for k, v in diag.items():
+                arrays[f"{tag}/d{t}/{k}"] = np.asarray(v)
+    np.savez(path, **arrays)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if "--params" in sys.argv[2:]:
+        main_params(sys.argv[1])
+    else:
+        main(sys.argv[1])

@@ -561,13 +561,20 @@ def test_async_n_must_divide_budget_and_capacity():
 
 
 def test_unported_entry_points_name_their_roadmap_item():
-    """What the engine still lacks raises ``NotImplementedError`` naming its
-    ROADMAP item: the runtime parameters (item 5). The restore and retune
-    entry points of items 3 and 4 are ported (``test_torch_resilience``,
-    ``test_torch_autotune``)."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        engine.make_engine_step(engine.EngineConfig(pic=_cfg()),
-                                with_params=True)
+    """The engine has no unported entry point left: the runtime parameters
+    (item 5, once a stub) build a step that runs, and nothing in the
+    engine raises ``NotImplementedError``. The restore and retune entry
+    points of items 3 and 4 are held in ``test_torch_resilience`` and
+    ``test_torch_autotune``, the params path in ``test_torch_params``."""
+    from repro_torch.core.params import runtime_params
+
+    ecfg = engine.EngineConfig(pic=_cfg())
+    step = engine.make_engine_step(ecfg, with_params=True)
+    state = engine.init_engine_state(ecfg, 0, device="cpu")
+    state, diag = step(state, runtime_params(ecfg.pic, device="cpu"))
+    assert int(diag["e/count"]) == 1024 and state.step == 1
+    with open(engine.__file__) as f:
+        assert "NotImplementedError" not in f.read()
 
 
 def test_phase_breakdown_and_queue_stats():

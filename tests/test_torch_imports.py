@@ -54,6 +54,8 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.launch.pic_run, repro_torch.configs.pic_bit1\n"
             "import repro_torch.models.lm, repro_torch.models.registry\n"
             "import repro_torch.train.serve_step, repro_torch.launch.serve_lm\n"
+            "import repro_torch.serve, repro_torch.core.params\n"
+            "from repro_torch.serve import SimService, ensemble, service\n"
             "from repro_torch.configs import PORTED, get_config\n"
             "[get_config(a) for a in PORTED]\n"
             "print('ok')")
@@ -209,6 +211,15 @@ def test_obs_ckpt_runtime_import_with_jax_blocked():
     ("runtime.fault_tolerance", ("SimulatedFailure", "FailureInjector",
                                  "run_training", "resume_training")),
     ("runtime.resilience", ("save_engine", "resume_engine", "run_engine")),
+    ("serve", None),
+    ("serve.ensemble", ("EnsembleState", "init_ensemble",
+                        "make_member_init", "make_member_insert",
+                        "make_member_release", "member_view",
+                        "make_ensemble_step")),
+    ("serve.service", ("Session", "SimService",
+                       "enable_compilation_cache")),
+    ("core.params", ("RUNTIME_FIELDS", "RuntimeParams", "runtime_params",
+                     "b_active")),
 ])
 def test_ported_modules_have_the_reference_names(module, names):
     """Each ported module has the reference's public names; ``obs`` has the
