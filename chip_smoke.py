@@ -54,20 +54,28 @@ Phases (any failure raises and ends the run with a non-zero exit):
    PyTorch's ``scaled_dot_product_attention`` on the same tensors (a
    yardstick only: the port never calls it), and the same for one layer of
    qwen2-7b (B 2, S 4,096, 28/4 heads, D 128) and of gemma-7b (B 1, S
-   4,096, 16/16 heads, D 256), for information;
-7. the LM serving path at the full width and depth of qwen2-0.5b, weights
-   from a seeded generator on the card, through ``get_config``,
-   ``registry.build``, ``make_prefill`` and ``make_serve_step``: a prefill of
-   8 prompts x 4,096 tokens (logits at the last position; exactly one flash
-   launch a layer), 4 requests of 512-token prompts fed by teacher-forced
-   decode steps then 32 greedy tokens (no flash launch), the decode logits
-   at every prompt position against the prefill's on the same prompts
-   (rel < 0.02), the ``serve_lm --full`` command line, and a profile of one
-   prefill;
-8. card against CPU for the LM: qwen2-0.5b at full width cut to 2 layers,
-   in f32, on the same weights and a 128-token prompt: prefill and decode
-   logits within 1e-4 of max |logits|, greedy tokens equal wherever the
-   top-2 gap exceeds that band;
+   4,096, 16/16 heads, D 256), and for phase 13's prefill layers:
+   recurrentgemma-2b (B 4, S 4,096, 10/1 heads, D 256, window 2,048; SDPA
+   with a boolean mask), whisper-base's encoder (B 4, 1,500 frames,
+   non-causal), decoder (448 tokens) and cross-attention (448 queries over
+   1,500 keys), and dbrx-132b (B 2, S 4,096, 48/8 heads, D 128), each
+   within FLASH_TOL of the plain version, timed for information;
+7. the LM serving paths at full width (run after phase 12, one loop with
+   phase 13's), weights from a seeded generator on the card, through
+   ``get_config``, ``registry.build``, ``make_prefill`` and
+   ``make_serve_step``, the flash launches set to 0 before each path and
+   read after: qwen2-0.5b at full width and depth, a prefill of 8 prompts
+   x 4,096 tokens twice (logits at the last position; exactly one flash
+   launch a layer; a profile of one prefill), 4 requests of 512-token
+   prompts fed by teacher-forced decode steps then 32 greedy tokens (no
+   flash launch; a profile of one step), the decode logits at every
+   prompt position against the prefill's on the same prompts (rel <
+   0.02), and the ``serve_lm --full`` command line;
+8. card against CPU for the LM in f32, on the same weights and a 128-token
+   prompt: qwen2-0.5b at full width cut to 2 layers (and phase 13's
+   families): prefill and decode logits within 1e-4 of max |logits|, 8
+   greedy steps on with both fed the CPU's choice, greedy tokens equal
+   wherever the top-2 gap exceeds that band;
 9. the multi-domain engine (run after phase 5), with the kernels' launch
    counts set to 0 before each of its paths and read after: the §3.3
    configuration with the field solve on (rho carried) and ionization at
@@ -117,8 +125,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    once each, and ``--autotune`` for 10 steps (one retune after its
    window of 8);
 11. one line of JSON with every kernel's numbers (launches summed over
-   the main paths, the engine's, phase 10's and phase 12's), then the
-   result line;
+   the main paths, the engine's, phase 10's, phase 12's and phase 13's),
+   then the result line;
 12. runtime parameters and the serving layer (run after phase 10), with
    the kernels' launch counts set to 0 before each of its paths and read
    after: (a) ``SimService(width=4)`` at the §3.3 configuration (fused,
@@ -138,7 +146,26 @@ Phases (any failure raises and ends the run with a non-zero exit):
    (field on, ionization, D 4 x async_n 4), 3 steps with a second
    parameter point from the second, pairs exact, launches pinned, no
    build after the first step; (e) ``pic_run --ensemble 8 --steps 5
-   --strategy fused``, its lines in the reference launcher's form.
+   --strategy fused``, its lines in the reference launcher's form;
+13. the MoE, SSM, hybrid and encoder-decoder families, in phase 7's and
+   8's loops: recurrentgemma-2b and mamba2-2.7b at full width and depth,
+   whisper-base at full size, dbrx-132b at full width with 2 of its 40
+   layers; for each two prefills (4 x 4,096 tokens; whisper 4 x 448
+   tokens over 4 x 1,500 frames; dbrx 2 x 4,096) with the flash launches
+   pinned (8, 0, 18, 2 a prefill; dbrx's share of routes dropped at
+   capacity 1.25; a profile of one recurrentgemma prefill), then 4
+   prompts of 512 tokens (whisper 64, after ``prefill_cross``) by decode
+   steps and 32 greedy tokens (kernels a decode step from a profile), and
+   decode against prefill: within 0.02 for recurrentgemma and whisper,
+   reported for dbrx (the MoE at capacity_factor 100; a bf16 route may
+   differ) and mamba2 (bf16 rounding grows through its 64 layers, as in
+   the reference), whose decode is held to its prefill in f32 at full
+   size within 1e-3; llama4-maverick and internvl2 at their SMOKE
+   configs; ``serve_lm --full --arch recurrentgemma-2b``; and card
+   against CPU in f32 (recurrentgemma at full width cut to 3 layers,
+   mamba2 to 2, whisper to 2 + 2, dbrx and llama4 at SMOKE width with
+   256-token prompts so that routes drop), the MoE's experts and
+   keep-masks equal.
 
 Exits non-zero and prints no result without a CUDA device, or when the
 port's sources are not beside this script.
@@ -954,7 +981,8 @@ def profile_phase(dev, cfg, label, step_ms, steps):
 def report_profile(prof, label, reps, host_ms):
     """Device time by operator and by kernel, per repetition, and the
     device's busy share of ``host_ms`` (the unprofiled host-clock time of
-    one repetition)."""
+    one repetition). Returns (device busy ms, kernels) a repetition, or
+    None when the profiler recorded no device time."""
     from torch.autograd import DeviceType
 
     # device kernels carry the device time; the aten ops that launched
@@ -971,7 +999,7 @@ def report_profile(prof, label, reps, host_ms):
     if not kernels:
         log(f"profile of {label}: the profiler recorded no device time (not "
             f"measured)")
-        return
+        return None
     busy = sum(r[0] for r in kernels)
     log(f"profile of {label}: device busy {busy:.3f} ms of "
         f"{host_ms:.3f} ms ({100 * busy / host_ms:.1f} %), "
@@ -980,6 +1008,7 @@ def report_profile(prof, label, reps, host_ms):
         log(f"  device ms {title}:")
         for ms, count, name in sorted(rows, reverse=True)[:12]:
             log(f"  {ms:8.3f} ms  x{count:4.0f}  {name[:90]}")
+    return busy, sum(r[1] for r in kernels)
 
 
 # ---------------------------------------------------------------- phase 5 --
@@ -1204,16 +1233,27 @@ def flash_phase(dev):
     del q, k, v
     torch.cuda.empty_cache()
 
-    # one layer of the other configs' head shapes, for information
-    for arch, b in (("qwen2-7b", 2), ("gemma-7b", 1)):
+    # one layer of the other configs' head shapes, and the prefill layers
+    # of phase 13's families: (label, arch, B, Sq, Skv, causal, window)
+    layers = [("", "qwen2-7b", 2, s, s, True, 0),
+              ("", "gemma-7b", 1, s, s, True, 0),
+              ("", "recurrentgemma-2b", 4, s, s, True, 2048),
+              (" encoder", "whisper-base", 4, 1500, 1500, False, 0),
+              (" decoder", "whisper-base", 4, 448, 448, True, 0),
+              (" cross", "whisper-base", 4, 448, 1500, False, 0),
+              ("", "dbrx-132b", 2, s, s, True, 0)]
+    for what, arch, b, sq, skv, causal, window in layers:
         c = get_config(arch)
-        q, k, v = qkv(b, s, s, c.n_heads, c.kv_heads, c.hd, c.dtype)
-        e = compare_flash(fa, q, k, v, True, 0, f"{arch} layer")
-        t = time_flash(fa, q, k, v)
-        log(f"flash one {arch} layer (B {b}, S {s}, H {c.n_heads}, KVH "
-            f"{c.kv_heads}, D {c.hd}, causal, bf16): max_abs_err {e:.3g}, "
-            f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}"
-            f"), scaled_dot_product_attention {t['library_ms']:.4f} ms")
+        q, k, v = qkv(b, sq, skv, c.n_heads, c.kv_heads, c.hd, c.dtype)
+        e = compare_flash(fa, q, k, v, causal, window, f"{arch}{what} layer")
+        t = time_flash(fa, q, k, v, causal, window)
+        log(f"flash one {arch}{what} layer (B {b}, Sq {sq}, Skv {skv}, H "
+            f"{c.n_heads}, KVH {c.kv_heads}, D {c.hd}, "
+            f"{'causal' if causal else 'non-causal'}"
+            f"{f', window {window}' if window else ''}, bf16): max_abs_err "
+            f"{e:.3g}, {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: {t['gflop']:.1f} GFLOP, {t['mb']:.1f} MB), "
+            f"scaled_dot_product_attention {t['library_ms']:.4f} ms")
         del q, k, v
         torch.cuda.empty_cache()
     return {key: r[key] for key in (
@@ -1221,18 +1261,27 @@ def flash_phase(dev):
         "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
 
-def time_flash(fa, q, k, v):
-    """Causal flash on (B, S, H, D) inputs by CUDA events, beside its
-    compute bound and SDPA on the same tensors."""
-    b, s, h, d = q.shape
-    pairs = b * h * attention_pairs(s, k.shape[1], True, 0)
+def time_flash(fa, q, k, v, causal=True, window=0):
+    """Flash on (B, S, H, D) inputs by CUDA events, beside its compute
+    bound and SDPA on the same tensors (a boolean mask for a window)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    pairs = b * h * attention_pairs(sq, skv, causal, window)
     nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOPS)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return dict(ms=median_ms(lambda: fa.flash_attention(q, k, v), 20),
-                library_ms=median_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True), 20),
+    kw = {"enable_gqa": True}
+    if window > 0:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        kw["attn_mask"] = (kpos > qpos - window) & (kpos <= qpos if causal
+                                                    else True)
+    else:
+        kw["is_causal"] = causal
+    return dict(ms=median_ms(lambda: fa.flash_attention(
+                    q, k, v, causal=causal, window=window), 20),
+                library_ms=median_ms(lambda: sdpa(qt, kt, vt, **kw), 20),
                 bound_ms=bms, bound_by=by, gflop=4 * d * pairs / 1e9,
                 g_exp=pairs / 1e9, mb=nbytes / 1e6)
 
@@ -3102,200 +3151,474 @@ def check_logits(label, logits, vocab):
                              f"finite of width {vocab}")
 
 
-def lm_serve_phase(dev):
-    """The serving path at full qwen2-0.5b; returns (flash launches summed
-    over the paths, numbers for the summary)."""
+# ---------------------------------------------------------------- phase 8 --
+
+CARD_CPU_BAND = 1e-4
+
+
+def agree(label, got, want, band=CARD_CPU_BAND):
+    """Card logits within band of max |CPU logits|; greedy tokens equal
+    wherever the top-2 gap of the CPU's logits exceeds the band."""
+    got = got.cpu()
+    rel = rel_err(got, want)
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > band * float(want.abs().max())
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    if not (rel < band and bool(same[clear].all())):
+        raise AssertionError(f"LM card vs CPU {label}: rel {rel}, "
+                             f"{int((~same & clear).sum())} clear greedy "
+                             f"tokens differ")
+    return rel, int(clear.sum()), int(clear.numel())
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+# ---------------------------------------------------------------- phase 13 --
+
+# the LM serving runs at full width: (batch, prompt) of the prefill, the
+# flash launches a prefill makes (one an attention: qwen2's 24 layers,
+# recurrentgemma's 8 local layers, none in mamba2, whisper's 6 encoder + 6
+# decoder + 6 cross, dbrx's 2 layers), and the prompt of the serving run
+# fed by decode steps
+FAMILIES = {LM_ARCH: ((8, 4096), 24, 512),
+            "recurrentgemma-2b": ((4, 4096), 8, 512),
+            "mamba2-2.7b": ((4, 4096), 0, 512),
+            "whisper-base": ((4, 448), 18, 64),
+            "dbrx-132b": ((2, 4096), 2, 512)}
+# decode vs prefill in bf16 is a gate where the two paths' rounding stays
+# within 0.02: not for the MoE, whose bf16 router may pick another expert
+# for a token whose logits the two paths round differently, nor for
+# mamba2's 64 layers, through which bf16 rounding grows with depth in the
+# reference as in the port (``tests/test_torch_ssm.py``); mamba2's decode
+# is gated against its prefill in f32 instead, at F32_DECODE_BAND
+DECODE_GATED = (LM_ARCH, "recurrentgemma-2b", "whisper-base")
+F32_DECODE_GATED = ("mamba2-2.7b",)
+F32_DECODE_BAND = 1e-3
+SERVE_BATCH, SERVE_NEW = 4, 32
+# the runs profiled whole: one prefill each
+PROFILED_PREFILL = (LM_ARCH, "recurrentgemma-2b")
+# the launcher at full size, once for each of these archs
+SERVE_LM_ARCHS = (LM_ARCH, "recurrentgemma-2b")
+SERVE_LM_ARGV = ["--full", "--batch", "4", "--prompt-len", "512",
+                 "--tokens", "32"]
+
+
+def family_config(arch):
+    """The arch's published config; dbrx cut to 2 of its 40 layers (every
+    matrix keeps its published shape)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=2) if arch == "dbrx-132b" \
+        else cfg
+
+
+class RouteLog:
+    """Records the MoE's routes while open: per moe_ffn call, the chosen
+    experts (g, s, k) and the keep-mask (g, s, k), on the host."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls = moe, []
+        self.route, self.plan = moe.route_topk, moe.dispatch_plan
+
+        def route(logits, k):
+            w, idx = self.route(logits, k)
+            self.calls.append({"idx": idx.cpu()})
+            return w, idx
+
+        def plan(idx, e, cap):
+            pos, keep = self.plan(idx, e, cap)
+            self.calls[-1]["keep"] = keep.cpu()
+            return pos, keep
+
+        moe.route_topk, moe.dispatch_plan = route, plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route_topk, self.moe.dispatch_plan = self.route, self.plan
+
+    def dropped(self) -> float:
+        keep = torch.cat([c["keep"].flatten() for c in self.calls])
+        return 1.0 - float(keep.float().mean())
+
+
+def frames_for(cfg, b, dev, seed=2):
+    """whisper's stub frames, 0.1 x normal (b, enc_seq, d) from a seed."""
+    return 0.1 * torch.randn((b, cfg.enc_seq, cfg.d_model), device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(seed)).to(cfg.dtype)
+
+
+def family_serve(dev, arch):
+    """One family at full width through the entry points: two prefills
+    (flash launches pinned, logits at the last position), then decode
+    steps over SERVE_BATCH prompts and SERVE_NEW greedy tokens (no flash
+    launch), and decode vs prefill over the prompts. Returns (flash
+    launches, numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch import serve_lm
+    from repro_torch.models import whisper
     from repro_torch.models.registry import build
     from repro_torch.train.serve_step import make_prefill, make_serve_step
 
-    cfg = get_config(LM_ARCH)
+    (b, s), want, plen = FAMILIES[arch]
+    cfg = family_config(arch)
     model = build(cfg)
+    t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "params_b": cfg.num_params() / 1e9}
     gen = torch.Generator(device=dev).manual_seed(1)
-    prefill = make_prefill(cfg)
-    out, launches = {}, 0
+    encdec = cfg.kind == "encdec"
+    launches = 0
 
-    def run_prefill(tokens, label):
+    def run_prefill(prefill, tokens, aux, label):
         nonlocal launches
         fa.flash_attention.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hidden, _ = prefill(params, tokens)
+        hidden, aux_loss = prefill(params, tokens, aux)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         n = fa.flash_attention.launches
-        if n != cfg.n_layers:
-            raise AssertionError(f"{label}: {n} flash launches, expected "
-                                 f"one a layer ({cfg.n_layers})")
+        if n != want:
+            raise AssertionError(f"{arch} {label}: {n} flash launches, "
+                                 f"expected {want}")
         launches += n
-        return hidden, ms
+        return hidden, aux_loss, ms
 
-    # prefill: 8 prompts x 4,096 tokens, logits at the last position only
-    b, s = 8, 4096
+    prefill = make_prefill(cfg)
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    aux = frames_for(cfg, b, dev) if encdec else None
     times = []
     for k in range(2):
         torch.cuda.reset_peak_memory_stats(dev)
-        hidden, ms = run_prefill(tokens, f"prefill {k}")
+        with RouteLog() as routes:
+            hidden, aux_loss, ms = run_prefill(prefill, tokens, aux,
+                                               f"prefill {k}")
         times.append(ms)
         last = model.logits(params, hidden[:, -1:])
-        check_logits("prefill", last, cfg.vocab)
+        check_logits(f"{arch} prefill", last, cfg.vocab)
         del hidden, last
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     out["prefill_ms"] = times[-1]
     out["prefill_tok_s"] = b * s / (times[-1] / 1e3)
-    log(f"LM prefill {LM_ARCH} {b} x {s}: ms {[round(t, 3) for t in times]} "
-        f"(steady {times[-1]:.3f} ms, {out['prefill_tok_s']:.0f} prompt "
-        f"tok/s), peak memory {peak:.2f} GiB, flash launches "
-        f"{cfg.n_layers} a prefill")
-    torch.cuda.empty_cache()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        hidden, _ = prefill(params, tokens)
-        torch.cuda.synchronize()
-    report_profile(prof, f"one {LM_ARCH} prefill of {b} x {s}", 1,
-                   times[-1])
-    del hidden, tokens
+    moe_line = ""
+    if cfg.kind == "moe":
+        out["dropped"] = routes.dropped()
+        moe_line = (f", {100 * out['dropped']:.3f} % of (token, k) routes "
+                    f"dropped at capacity {cfg.capacity_factor}, aux "
+                    f"{float(aux_loss):.4f}")
+    log(f"{arch} ({out['params_b']:.3f} B parameters, {cfg.n_layers} layers"
+        f", init {out['init_s']:.1f} s) prefill {b} x {s}: ms "
+        f"{[round(x, 3) for x in times]} ({out['prefill_tok_s']:.0f} prompt "
+        f"tok/s), peak memory {out['peak_gib']:.2f} GiB, flash launches "
+        f"{want} a prefill{moe_line}")
+    if arch in PROFILED_PREFILL:
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            hidden, _ = prefill(params, tokens, aux)
+            torch.cuda.synchronize()
+        report_profile(prof, f"one {arch} prefill of {b} x {s}", 1,
+                       times[-1])
+        del hidden
+    del tokens
     torch.cuda.empty_cache()
 
-    # serve: 4 requests of 512-token prompts, teacher-forced decode steps,
-    # then 32 greedy tokens
-    b, plen, new = 4, 512, 32
-    prompts = torch.randint(0, cfg.vocab, (b, plen), generator=gen,
+    # serve: prompts fed by teacher-forced decode steps, then greedy tokens
+    bs = SERVE_BATCH
+    prompts = torch.randint(0, cfg.vocab, (bs, plen), generator=gen,
                             device=dev)
-    cache = model.init_cache(b, plen + new + 1, dev)   # + the profiled step
+    frames = frames_for(cfg, bs, dev, seed=3) if encdec else None
+    cache = model.init_cache(bs, plen + SERVE_NEW + 1, dev)
+    if encdec:
+        fa.flash_attention.launches = 0
+        cache = whisper.prefill_cross(cfg, params, cache, frames)
+        n = fa.flash_attention.launches
+        if n != cfg.enc_layers:
+            raise AssertionError(f"{arch} prefill_cross: {n} flash launches")
+        launches += n
     serve = make_serve_step(cfg)
-    dec = torch.empty(b, plen, cfg.vocab, dtype=cfg.dtype, device=dev)
+    dec = torch.empty(bs, plen, cfg.vocab, dtype=cfg.dtype, device=dev)
     fa.flash_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(plen):
-        lg, cache = model.decode_step(params, prompts[:, t:t + 1], cache, t)
-        dec[:, t] = lg[:, 0]
+    with RouteLog() as dec_routes:
+        for t in range(plen):
+            lg, cache = model.decode_step(params, prompts[:, t:t + 1], cache,
+                                          t)
+            dec[:, t] = lg[:, 0]
     torch.cuda.synchronize()
     prompt_ms = (time.perf_counter() - t0) * 1e3 / plen
     nxt = torch.argmax(dec[:, -1], dim=-1).to(torch.int32)[:, None]
     generated, step_ms = [nxt], []
-    for t in range(plen, plen + new):
+    for t in range(plen, plen + SERVE_NEW):
         t0 = time.perf_counter()
         nxt, cache = serve(params, nxt, cache, t)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         generated.append(nxt)
     if fa.flash_attention.launches:
-        raise AssertionError(f"decode launched flash "
+        raise AssertionError(f"{arch} decode launched flash "
                              f"{fa.flash_attention.launches} times")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve(params, nxt, cache, plen + new)
+        serve(params, nxt, cache, plen + SERVE_NEW)
         torch.cuda.synchronize()
-    report_profile(prof, f"one {LM_ARCH} decode step at batch {b}", 1,
-                   statistics.median(step_ms))
+    prof_row = report_profile(prof, f"one {arch} decode step at batch {bs}",
+                              1, statistics.median(step_ms))
+    out["decode_kernels"] = prof_row[1] if prof_row else None
     gen_tok = torch.cat(generated, dim=1)
-    check_logits("decode", dec, cfg.vocab)
+    check_logits(f"{arch} decode", dec, cfg.vocab)
     if not bool(((gen_tok >= 0) & (gen_tok < cfg.vocab)).all()):
-        raise AssertionError("a generated token lies outside the vocabulary")
+        raise AssertionError(f"{arch}: a generated token lies outside the "
+                             f"vocabulary")
     out["decode_ms"] = statistics.median(step_ms)
-    out["decode_tok_s"] = b * new / (sum(step_ms) / 1e3)
-    log(f"LM serve {LM_ARCH}: batch {b}, {plen}-token prompts by decode "
-        f"steps ({prompt_ms:.3f} ms a step), then {new} greedy tokens: "
-        f"{out['decode_ms']:.3f} ms a decode step (median; steps "
-        f"{[round(t, 3) for t in step_ms[:4]]}...), {out['decode_tok_s']:.1f}"
-        f" tok/s, flash launches 0; first row {gen_tok[0, :8].tolist()}")
+    out["decode_tok_s"] = bs * SERVE_NEW / (sum(step_ms) / 1e3)
+    log(f"{arch} serve: batch {bs}, {plen}-token prompts by decode steps "
+        f"({prompt_ms:.3f} ms a step), then {SERVE_NEW} greedy tokens: "
+        f"{out['decode_ms']:.3f} ms a decode step (median), "
+        f"{out['decode_tok_s']:.1f} tok/s, {out['decode_kernels']} kernels "
+        f"a decode step, flash launches 0; first row "
+        f"{gen_tok[0, :8].tolist()}")
     del cache
 
-    # decode against prefill on the same prompts
-    hidden, _ = run_prefill(prompts, "prefill of the serve prompts")
+    # decode against prefill on the same prompts (the MoE without drops,
+    # as a decode step never drops: capacity_factor 100)
+    cmp_cfg = dataclasses.replace(cfg, capacity_factor=100.0) \
+        if cfg.kind == "moe" else cfg
+    with RouteLog() as pre_routes:
+        hidden, _, _ = run_prefill(make_prefill(cmp_cfg), prompts, frames,
+                                   "prefill of the serve prompts")
     ref = model.logits(params, hidden)
     rel = rel_err(dec, ref)
-    if not rel < 0.02:
-        raise AssertionError(f"decode vs prefill logits: rel {rel}")
-    log(f"LM decode vs prefill logits over {b} x {plen} prompt positions: "
-        f"max |diff| / max |logits| = {rel:.4g} (band 0.02)")
     out["decode_vs_prefill_rel"] = rel
-    del hidden, ref, dec
-    torch.cuda.empty_cache()
-
-    fa.flash_attention.launches = 0
-    serve_lm.main(["--full", "--batch", "4", "--prompt-len", "512",
-                   "--tokens", "32"])
-    n = fa.flash_attention.launches
-    # two prefills of one launch a layer: an untimed one, then the timed one
-    if n != 2 * cfg.n_layers:
-        raise AssertionError(f"serve_lm --full: {n} flash launches")
-    launches += n
-    log(f"main path serve_lm --full: flash launches {n}")
-    del params
+    route_line = ""
+    if cfg.kind == "moe":
+        # decode calls run step-major, layer-minor; the prefill's by layer
+        d_idx = torch.stack([c["idx"][:, 0] for c in dec_routes.calls])
+        d_idx = d_idx.reshape(plen, cfg.n_layers, bs, -1).permute(1, 2, 0, 3)
+        p_idx = torch.stack([c["idx"] for c in pre_routes.calls])
+        same = (torch.sort(d_idx, -1).values
+                == torch.sort(p_idx, -1).values).all(-1)
+        route_line = (f"; expert sets equal on "
+                      f"{100 * float(same.float().mean()):.3f} % of (layer, "
+                      f"token)")
+    log(f"{arch} decode vs prefill logits over {bs} x {plen} prompt "
+        f"positions: max |diff| / max |logits| = {rel:.4g} (band 0.02"
+        f"{'' if arch in DECODE_GATED else ', reported'}){route_line}")
+    if arch in DECODE_GATED and not rel < 0.02:
+        raise AssertionError(f"{arch} decode vs prefill logits: rel {rel}")
+    del hidden, ref, dec, params
     torch.cuda.empty_cache()
     return launches, out
 
 
-# ---------------------------------------------------------------- phase 8 --
+def f32_decode_vs_prefill(dev, arch, plen=128):
+    """The family at full width and depth in f32: decode steps over
+    SERVE_BATCH prompts of ``plen`` tokens against the prefill of the same
+    prompts, within F32_DECODE_BAND of max |logits|."""
+    from repro_torch.models.registry import build
+    from repro_torch.train.serve_step import make_prefill
 
-def lm_card_vs_cpu_phase(dev):
-    """qwen2-0.5b at full width, 2 layers, f32, one 128-token prompt: the
-    same weights and tokens on the card and on the CPU."""
-    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(family_config(arch), dtype=torch.float32)
+    model = build(cfg)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, plen), device=dev,
+                            generator=torch.Generator(
+                                device=dev).manual_seed(6))
+    cache = model.init_cache(SERVE_BATCH, plen, dev)
+    dec = torch.empty(SERVE_BATCH, plen, cfg.vocab, device=dev)
+    for t in range(plen):
+        lg, cache = model.decode_step(params, prompts[:, t:t + 1], cache, t)
+        dec[:, t] = lg[:, 0]
+    hidden, _ = make_prefill(cfg)(params, prompts)
+    rel = rel_err(dec, model.logits(params, hidden))
+    log(f"{arch} in f32 (full width and depth): decode vs prefill logits "
+        f"over {SERVE_BATCH} x {plen} prompt positions: max |diff| / max "
+        f"|logits| = {rel:.4g} (band {F32_DECODE_BAND})")
+    if not rel < F32_DECODE_BAND:
+        raise AssertionError(f"{arch} f32 decode vs prefill logits: rel "
+                             f"{rel}")
+    del params, cache, dec, hidden
+    torch.cuda.empty_cache()
+    return rel
+
+
+def smoke_families(dev):
+    """llama4-maverick and internvl2 at their SMOKE configs: a prefill
+    (internvl2 with its prefix embeddings), 16 decode steps, decode vs
+    prefill reported. Returns the flash launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.registry import build
+    from repro_torch.train.serve_step import make_prefill
+
+    launches = 0
+    for arch in ("llama4-maverick-400b-a17b", "internvl2-26b"):
+        cfg = get_smoke_config(arch)
+        model = build(cfg)
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        b, s = 2, 256
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               device=dev)
+        prefix = None
+        if cfg.kind == "vlm":
+            prefix = 0.1 * torch.randn((b, cfg.frontend_tokens, cfg.d_model),
+                                       generator=gen, device=dev)
+        fa.flash_attention.launches = 0
+        hidden, aux = make_prefill(cfg)(params, tokens, prefix)
+        n = fa.flash_attention.launches
+        if n != cfg.n_layers or hidden.shape[1] != s + cfg.frontend_tokens:
+            raise AssertionError(f"{arch} smoke prefill: {n} flash launches,"
+                                 f" hidden {tuple(hidden.shape)}")
+        launches += n
+        check_logits(f"{arch} smoke", model.logits(params, hidden),
+                     cfg.vocab)
+        steps = 16
+        cache = model.init_cache(b, steps, dev)
+        dec = []
+        for t in range(steps):
+            lg, cache = model.decode_step(params, tokens[:, t:t + 1], cache,
+                                          t)
+            dec.append(lg[:, 0])
+        cmp_cfg = dataclasses.replace(cfg, capacity_factor=100.0) \
+            if cfg.kind == "moe" else cfg
+        fa.flash_attention.launches = 0
+        h, _ = make_prefill(cmp_cfg)(params, tokens[:, :steps])
+        launches += fa.flash_attention.launches
+        rel = rel_err(torch.stack(dec, 1), model.logits(params, h))
+        with_prefix = (f" + a prefix of {cfg.frontend_tokens}"
+                       if prefix is not None else "")
+        log(f"{arch} smoke config on the card: prefill {b} x {s}"
+            f"{with_prefix}, {n} flash launches, aux {float(aux):.4f}; "
+            f"{steps} decode steps vs prefill rel {rel:.4g} (reported)")
+        del params, cache
+    return launches
+
+
+# card against CPU in f32: the cut of each family's config and its prompt
+CARD_CPU_FAMILIES = ((LM_ARCH, "CONFIG", dict(n_layers=2), 128),
+                     ("recurrentgemma-2b", "CONFIG", dict(n_layers=3), 128),
+                     ("mamba2-2.7b", "CONFIG", dict(n_layers=2), 128),
+                     ("whisper-base", "CONFIG",
+                      dict(n_layers=2, enc_layers=2), 128),
+                     ("dbrx-132b", "SMOKE", {}, 256),
+                     ("llama4-maverick-400b-a17b", "SMOKE", {}, 256))
+
+
+def family_card_vs_cpu(dev):
+    """Each family in f32 on the same weights and prompt, card against
+    CPU: prefill and decode logits within CARD_CPU_BAND of max |logits|
+    and 8 greedy steps on, both fed the CPU's choice; greedy tokens equal
+    wherever the CPU's top-2 gap exceeds the band; the MoE's experts and
+    keep-masks equal."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import whisper
     from repro_torch.models.registry import build
 
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
-                              dtype=torch.float32)
-    model = build(cfg)
-    cpu = model.init_params(torch.Generator().manual_seed(3))
-    card = {k: ({n: {w: t.to(dev) for w, t in sub.items()}
-                 for n, sub in v.items()} if k == "blocks" else v.to(dev))
-            for k, v in cpu.items()}
-    tokens = torch.randint(0, cfg.vocab, (1, 128),
-                           generator=torch.Generator().manual_seed(4))
-    band = 1e-4
+    for arch, which, cut, plen in CARD_CPU_FAMILIES:
+        base = (get_config if which == "CONFIG" else get_smoke_config)(arch)
+        cfg = dataclasses.replace(base, dtype=torch.float32, **cut)
+        model = build(cfg)
+        cpu = model.init_params(torch.Generator().manual_seed(3))
+        card = tree_to(cpu, dev)
+        tokens = torch.randint(0, cfg.vocab, (1, plen),
+                               generator=torch.Generator().manual_seed(4))
+        frames = None
+        if cfg.kind == "encdec":
+            frames = 0.1 * torch.randn(
+                (1, cfg.enc_seq, cfg.d_model),
+                generator=torch.Generator().manual_seed(5))
+        results = []
+        for params, device in ((cpu, "cpu"), (card, dev)):
+            with RouteLog() as routes:
+                h, _ = model.forward(params, tokens.to(device),
+                                     None if frames is None else
+                                     frames.to(device))
+                pre = model.logits(params, h)
+                cache = model.init_cache(1, plen + 8, device)
+                if frames is not None:
+                    cache = whisper.prefill_cross(cfg, params, cache,
+                                                  frames.to(device))
+                steps = []
+                for t in range(plen):
+                    lg, cache = model.decode_step(
+                        params, tokens[:, t:t + 1].to(device), cache, t)
+                    steps.append(lg[:, 0])
+            results.append((pre, torch.stack(steps, 1), cache, routes.calls))
+        (pc, dc, cc, rc), (pg, dg, cg, rg) = results
+        r_pre = agree(f"{arch} prefill", pg, pc)
+        r_dec = agree(f"{arch} decode", dg, dc)
+        nxt, gaps = torch.argmax(dc[:, -1], -1)[:, None], []
+        for t in range(plen, plen + 8):
+            lc, cc = model.decode_step(cpu, nxt, cc, t)
+            lg, cg = model.decode_step(card, nxt.to(dev), cg, t)
+            gaps.append(agree(f"{arch} greedy step {t}", lg[:, 0],
+                              lc[:, 0])[0])
+            nxt = torch.argmax(lc[:, 0], -1)[:, None]
+        line = ""
+        if cfg.kind == "moe":
+            if len(rc) != len(rg):
+                raise AssertionError(f"{arch}: {len(rc)} vs {len(rg)} routes")
+            for a, b in zip(rc, rg):
+                check_equal(f"{arch} card vs CPU experts", a["idx"], b["idx"])
+                check_equal(f"{arch} card vs CPU keep", a["keep"], b["keep"])
+            drops = sum(int((~c["keep"]).sum()) for c in rc)
+            line = (f"; experts and keep-masks equal in all {len(rc)} MoE "
+                    f"calls ({drops} routes dropped)")
+            if drops == 0:
+                raise AssertionError(f"{arch}: no route dropped at "
+                                     f"{plen} tokens")
+        log(f"{arch} card vs CPU ({which} width {cfg.d_model}, "
+            f"{cfg.n_layers} layers, f32, {plen}-token prompt): prefill rel "
+            f"{r_pre[0]:.3g} (greedy equal on {r_pre[1]}/{r_pre[2]} clear "
+            f"positions), decode rel {r_dec[0]:.3g} ({r_dec[1]}/{r_dec[2]})"
+            f", 8 greedy steps max rel {max(gaps):.3g}{line}")
+        del cpu, card
+        torch.cuda.empty_cache()
 
-    def agree(label, got, want):
-        """Logits within band of max |want|; greedy tokens equal wherever
-        the top-2 gap of the CPU's logits exceeds the band."""
-        got = got.cpu()
-        rel = rel_err(got, want)
-        top2 = torch.topk(want, 2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > band * float(
-            want.abs().max())
-        same = torch.argmax(got, -1) == torch.argmax(want, -1)
-        if not (rel < band and bool(same[clear].all())):
-            raise AssertionError(f"LM card vs CPU {label}: rel {rel}, "
-                                 f"{int((~same & clear).sum())} clear greedy "
-                                 f"tokens differ")
-        return rel, int(clear.sum()), int(clear.numel())
 
-    results = []
-    for label, params, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
-        h, _ = model.forward(params, tokens.to(device))
-        pre = model.logits(params, h)
-        cache = model.init_cache(1, 128 + 9, device)
-        steps = []
-        for t in range(128):
-            lg, cache = model.decode_step(params, tokens[:, t:t + 1]
-                                          .to(device), cache, t)
-            steps.append(lg[:, 0])
-        results.append((pre, torch.stack(steps, 1), cache))
-    (pc, dc, cc), (pg, dg, cg) = results
-    r_pre = agree("prefill", pg, pc)
-    r_dec = agree("decode", dg, dc)
-    # 8 greedy tokens, both fed the CPU's choice
-    nxt = torch.argmax(dc[:, -1], -1)[:, None]
-    gaps = []
-    for t in range(128, 136):
-        lc, cc = model.decode_step(cpu, nxt, cc, t)
-        lg, cg = model.decode_step(card, nxt.to(dev), cg, t)
-        gaps.append(agree(f"greedy step {t}", lg[:, 0], lc[:, 0])[0])
-        nxt = torch.argmax(lc[:, 0], -1)[:, None]
-    log(f"LM card vs CPU ({LM_ARCH}, width {cfg.d_model}, 2 layers, f32, "
-        f"128-token prompt): prefill rel {r_pre[0]:.3g} (greedy equal on "
-        f"{r_pre[1]}/{r_pre[2]} clear positions), decode rel {r_dec[0]:.3g} "
-        f"({r_dec[1]}/{r_dec[2]}), 8 greedy steps max rel {max(gaps):.3g}")
+def family_phase(dev):
+    """Phases 7, 8 and 13: every LM serving run, the launcher, and card
+    against CPU. Returns (flash launches summed over the paths, numbers by
+    arch)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve_lm
 
+    t0 = time.perf_counter()
+    launches, nums = 0, {}
+    for arch in FAMILIES:
+        n, nums[arch] = family_serve(dev, arch)
+        launches += n
+        if arch in F32_DECODE_GATED:
+            nums[arch]["f32_decode_vs_prefill_rel"] = f32_decode_vs_prefill(
+                dev, arch)
+    launches += smoke_families(dev)
+    for arch in SERVE_LM_ARCHS:
+        fa.flash_attention.launches = 0
+        serve_lm.main(SERVE_LM_ARGV + ["--arch", arch])
+        n = fa.flash_attention.launches
+        # two prefills of one launch an attention: untimed, then timed
+        if n != 2 * FAMILIES[arch][1]:
+            raise AssertionError(f"serve_lm --full --arch {arch}: {n} flash "
+                                 f"launches")
+        launches += n
+        log(f"main path serve_lm --full --arch {arch}: flash launches {n}")
+        torch.cuda.empty_cache()
+    family_card_vs_cpu(dev)
+    nums["seconds"] = time.perf_counter() - t0
+    return launches, nums
 
 
 def main() -> int:
@@ -3350,8 +3673,7 @@ def main() -> int:
     for k in PIC_KERNELS:
         counts[k] += engine_counts[k] + obs_counts[k] + serve_counts[k]
     kernels["flash_attention"] = flash_phase(dev)
-    counts["flash_attention"], lm = lm_serve_phase(dev)
-    lm_card_vs_cpu_phase(dev)
+    counts["flash_attention"], fam = family_phase(dev)
 
     log("kernels: " + "; ".join(
         f"{k} launches={counts[k]} max_abs_err={kernels[k]['max_abs_err']:.3g}"
@@ -3382,10 +3704,18 @@ def main() -> int:
         f"{SERVE_WIDTH} x the solo step {SERVE_WIDTH * serve['solo_ms']:.3f}"
         f", peak memory {serve['peak_gib']:.2f} GiB; phase "
         f"{serve['seconds']:.1f} s")
-    log(f"LM {LM_ARCH}: prefill 8 x 4096 {lm['prefill_ms']:.3f} ms "
-        f"({lm['prefill_tok_s']:.0f} tok/s), decode {lm['decode_ms']:.3f} "
-        f"ms/step at batch 4 ({lm['decode_tok_s']:.1f} tok/s), decode vs "
-        f"prefill rel {lm['decode_vs_prefill_rel']:.4g}")
+    for arch in FAMILIES:
+        r = fam[arch]
+        log(f"LM {arch}: prefill {FAMILIES[arch][0][0]} x "
+            f"{FAMILIES[arch][0][1]} {r['prefill_ms']:.3f} ms "
+            f"({r['prefill_tok_s']:.0f} tok/s), peak {r['peak_gib']:.2f} GiB"
+            f", decode {r['decode_ms']:.3f} ms/step at batch {SERVE_BATCH} "
+            f"({r['decode_tok_s']:.1f} tok/s, {r['decode_kernels']} kernels "
+            f"a step), decode vs prefill rel "
+            f"{r['decode_vs_prefill_rel']:.4g}"
+            + (f", {100 * r['dropped']:.3f} % routes dropped"
+               if "dropped" in r else ""))
+    log(f"LM phases: {fam['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     rows = []

@@ -2,8 +2,8 @@
 substrate's archs, one module each (the port of ``repro.configs``).
 
 ``get_config(arch)`` / ``get_smoke_config(arch)`` look up by arch id (e.g.
-"qwen2-0.5b"). ``ARCHS`` is the reference's tuple; the archs whose family
-the port does not run yet raise ``NotImplementedError``.
+"qwen2-0.5b"). ``ARCHS`` is the reference's tuple, and the port runs every
+one of them (``PORTED``).
 """
 
 from __future__ import annotations
@@ -22,17 +22,12 @@ ARCHS = (
     "internvl2-26b",
     "mamba2-2.7b",
 )
-# the dense archs, the only ones ported so far
-PORTED = ("qwen2-0.5b", "gemma-7b", "qwen2-7b", "qwen2.5-3b")
+PORTED = ARCHS
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP queue 1, item 6, "
-            f"the LM substrate); ported: {PORTED}")
     name = arch.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -4,21 +4,23 @@
 The reference stacks per-layer parameters along a leading ``L`` axis and
 scans over it; the port keeps the stacked dict and runs a Python loop over
 layers. ``constrain`` is not ported: it is a no-op without a mesh, and a
-config that names a tensor-parallel axis raises.
+config that names a tensor-parallel axis raises (tensor parallelism comes
+with the training slice).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from functools import partial
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
-# the families and options the port does not run yet: ROADMAP queue 1, item 6
-NOT_PORTED = "not ported yet (ROADMAP queue 1, item 6, the LM substrate)"
+# the model kinds the port runs: every kind of the reference
+KINDS = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+# the option the port does not run yet: ROADMAP queue 1, item 6
+NOT_PORTED = ("not ported yet (ROADMAP queue 1, item 6: the training "
+              "slice, with sharding)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +84,18 @@ class ModelConfig:
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return self.kind == "ssm"
+
+    @property
+    def subquadratic(self) -> bool:
+        """Eligible for the reference's long_500k shape."""
+        return self.kind == "ssm" or (self.kind == "hybrid"
+                                      and self.local_window > 0)
+
     def num_params(self) -> int:
-        """Analytic parameter count (the dense family's)."""
-        require_dense(self)
+        """Analytic parameter count, the reference's formula."""
         d, ff, v, hd = self.d_model, self.d_ff, self.vocab, self.hd
         h, kv = self.n_heads, self.kv_heads
         attn = d * h * hd + 2 * d * kv * hd + h * hd * d
@@ -92,24 +103,52 @@ class ModelConfig:
             ffn = 3 * d * ff
         else:
             ffn = 2 * d * ff
-        total = self.n_layers * (attn + ffn + 2 * d) + v * d
+        if self.kind == "moe":
+            ffn = self.n_experts * ffn + d * self.n_experts   # + router
+        per_layer = attn + ffn + 2 * d
+        if self.kind == "ssm":
+            d_in = self.ssm_expand * d
+            nheads = d_in // self.ssm_head_dim
+            per_layer = (d * (2 * d_in + 2 * self.ssm_state + nheads)
+                         + d_in * d + 2 * d)
+        if self.kind == "hybrid":
+            # the pattern's layers counted by kind
+            attn_l = attn + ffn + 2 * d
+            rg = self.rglru_d_rnn
+            rg_l = d * rg * 2 + rg * d + 4 * rg + ffn + 2 * d
+            n_attn = sum(1 for p in self._full_pattern() if p == "attn")
+            n_rg = self.n_layers - n_attn
+            return (n_attn * attn_l + n_rg * rg_l + v * d
+                    + (0 if self.tie_embeddings else v * d))
+        total = self.n_layers * per_layer + v * d
+        if self.enc_layers:
+            total += self.enc_layers * (attn + ffn + 2 * d) + attn  # cross
         if not self.tie_embeddings:
             total += v * d
         return total
 
     def num_active_params(self) -> int:
-        """Active params per token: all of them in the dense family."""
-        return self.num_params()
+        """Active params per token (MoE: only top_k experts count)."""
+        if self.kind != "moe":
+            return self.num_params()
+        d, ff = self.d_model, self.d_ff
+        expert = (3 * d * ff if self.ffn_act in ("swiglu", "geglu")
+                  else 2 * d * ff)
+        dense_part = self.num_params() - self.n_layers * self.n_experts * expert
+        return dense_part + self.n_layers * self.top_k * expert
+
+    def _full_pattern(self) -> tuple[str, ...]:
+        if not self.pattern:
+            return ("attn",) * self.n_layers
+        reps = -(-self.n_layers // len(self.pattern))
+        return (self.pattern * reps)[: self.n_layers]
 
 
-DENSE_KINDS = ("dense", "vlm")
-
-
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.kind not in DENSE_KINDS:
-        raise NotImplementedError(f"model kind {cfg.kind!r} ({cfg.arch}) is "
-                                  f"{NOT_PORTED}; the port runs "
-                                  f"{DENSE_KINDS}")
+def require_kind(cfg: ModelConfig) -> None:
+    """Raise on a kind no family of the port (or the reference) runs."""
+    if cfg.kind not in KINDS:
+        raise ValueError(f"unknown model kind {cfg.kind!r} ({cfg.arch}); "
+                         f"one of {KINDS}")
 
 
 # ------------------------------------------------------------------ layers
@@ -157,10 +196,22 @@ def dense_init(gen: torch.Generator, shape: tuple[int, ...], dtype,
                         device=gen.device) * std).to(dtype)
 
 
-# jax.nn.gelu defaults to the tanh approximation; torch's gelu to erf
-_gelu = partial(F.gelu, approximate="tanh")
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) as ``jax.nn.silu`` computes it: x * (1 / (1 +
+    exp(-x))), every op rounded to x's dtype. In bf16 this equals the
+    reference bit for bit, where ``F.silu`` rounds once and does not."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation as ``jax.nn.gelu`` computes it (its default),
+    every op and both constants in x's dtype: bit for bit the reference's in
+    bf16, where ``F.gelu(approximate='tanh')`` rounds once."""
+    c1 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype,
+                      device=x.device)
+    c2 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c2 * (x * x * x)))))
 
 
 def act_fn(name: str):
-    return {"swiglu": F.silu, "geglu": _gelu, "gelu": _gelu,
-            "silu": F.silu}[name]
+    return {"swiglu": silu, "geglu": gelu, "gelu": gelu, "silu": silu}[name]

@@ -1,15 +1,15 @@
 """Model registry: the uniform (init / forward / cache / decode) API per
-arch (the port of ``repro.models.registry``). Only the dense family is
-ported; ``build`` raises on the others (the encoder-decoder whisper
-included)."""
+arch (the port of ``repro.models.registry``), for every kind: the
+decoder-only families through ``models.lm``, the encoder-decoder through
+``models.whisper``."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from repro_torch.models import lm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models import lm, whisper
+from repro_torch.models.common import ModelConfig, require_kind
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,16 +20,18 @@ class Model:
     logits: Callable               # (params, hidden) -> logits
     init_cache: Callable           # (batch, s_max, device) -> cache
     decode_step: Callable          # (params, token, cache, pos) -> (logits, cache)
+    has_decode: bool = True
 
 
 def build(cfg: ModelConfig) -> Model:
-    lm.require_dense(cfg)
+    require_kind(cfg)
+    mod = whisper if cfg.kind == "encdec" else lm
     return Model(
         cfg=cfg,
-        init_params=lambda gen: lm.init_params(cfg, gen),
-        forward=lambda p, tokens, aux=None: lm.forward(cfg, p, tokens, aux),
+        init_params=lambda gen: mod.init_params(cfg, gen),
+        forward=lambda p, tokens, aux=None: mod.forward(cfg, p, tokens, aux),
         logits=lambda p, h: lm.logits_fn(cfg, p, h),
-        init_cache=lambda b, s, device="cuda": lm.init_cache(cfg, b, s,
-                                                             device),
-        decode_step=lambda p, t, c, pos: lm.decode_step(cfg, p, t, c, pos),
+        init_cache=lambda b, s, device="cuda": mod.init_cache(cfg, b, s,
+                                                              device),
+        decode_step=lambda p, t, c, pos: mod.decode_step(cfg, p, t, c, pos),
     )

@@ -1,25 +1,33 @@
 """Serving: prefill and single-token decode steps (the port of
-``repro.train.serve_step``), for the dense family; the others raise.
+``repro.train.serve_step``), for every kind: the encoder-decoder through
+``models.whisper``, the others through ``models.lm``.
 
 ``make_prefill`` is the full forward over a prompt: its attention is the
-flash-attention kernel, one launch a layer. ``make_serve_step`` is one new
-token against the KV cache, with greedy argmax sampling.
+flash-attention kernel, one launch an attention (the encoder-decoder's
+forward runs its encoder too, and takes the frames as its aux input).
+``make_serve_step`` is one new token against the decode cache (KV rows or
+recurrent state), with greedy argmax sampling.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import lm
-from repro_torch.models.common import ModelConfig
+from repro_torch.models import lm, whisper
+from repro_torch.models.common import ModelConfig, require_kind
+
+
+def _module(cfg: ModelConfig):
+    require_kind(cfg)
+    return whisper if cfg.kind == "encdec" else lm
 
 
 def make_serve_step(cfg: ModelConfig):
     """Returns serve(params, token, cache, pos) -> (next_token, cache)."""
-    lm.require_dense(cfg)
+    mod = _module(cfg)
 
     def serve(params, token, cache, pos):
-        logits, cache = lm.decode_step(cfg, params, token, cache, pos)
+        logits, cache = mod.decode_step(cfg, params, token, cache, pos)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt[:, None], cache
 
@@ -29,9 +37,9 @@ def make_serve_step(cfg: ModelConfig):
 def make_prefill(cfg: ModelConfig):
     """Returns prefill(params, tokens, aux) -> (hidden, aux_loss): the full
     forward at the prompt's length."""
-    lm.require_dense(cfg)
+    mod = _module(cfg)
 
     def prefill(params, tokens, aux=None):
-        return lm.forward(cfg, params, tokens, aux)
+        return mod.forward(cfg, params, tokens, aux)
 
     return prefill

@@ -54,6 +54,7 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.launch.pic_run, repro_torch.configs.pic_bit1\n"
             "import repro_torch.models.lm, repro_torch.models.registry\n"
             "import repro_torch.train.serve_step, repro_torch.launch.serve_lm\n"
+            "from repro_torch.models import mamba2, moe, rglru, whisper\n"
             "import repro_torch.serve, repro_torch.core.params\n"
             "from repro_torch.serve import SimService, ensemble, service\n"
             "from repro_torch.configs import PORTED, get_config\n"
@@ -220,6 +221,19 @@ def test_obs_ckpt_runtime_import_with_jax_blocked():
                        "enable_compilation_cache")),
     ("core.params", ("RUNTIME_FIELDS", "RuntimeParams", "runtime_params",
                      "b_active")),
+    ("models.moe", ("route_topk", "moe_ffn")),
+    ("models.rglru", ("RG_C", "CONV_W", "rg_lru", "rg_lru_step",
+                      "causal_conv")),
+    ("models.mamba2", ("CONV_W", "_depthwise_conv", "ssd_chunked",
+                       "ssd_decode_step")),
+    ("models.whisper", ("init_params", "encode", "_cross_apply", "forward",
+                        "init_cache", "prefill_cross", "decode_step")),
+    ("models.lm", ("init_params", "forward", "logits_fn", "init_cache",
+                   "decode_step", "_init_moe_ffn", "_init_ssm", "_init_rg",
+                   "_ffn_apply", "_ssm_apply", "_ssm_decode", "_rg_apply",
+                   "_sinusoid_row")),
+    ("models.registry", ("Model", "build")),
+    ("train.serve_step", ("make_serve_step", "make_prefill")),
 ])
 def test_ported_modules_have_the_reference_names(module, names):
     """Each ported module has the reference's public names; ``obs`` has the

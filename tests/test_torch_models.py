@@ -1,14 +1,18 @@
-"""The port's dense LM (``repro_torch.models``, ``configs``, ``train``,
-``launch.serve_lm``) against the reference's, on the SMOKE configs of the
-four dense archs, with the reference's parameters from ``PRNGKey(0)``
-carried across by ``params_from_numpy``.
+"""The port's LM (``repro_torch.models``, ``configs``, ``train``,
+``launch.serve_lm``) against the reference's, on the SMOKE configs of all
+ten archs (the dense, vlm, moe, ssm, hybrid and encdec kinds), with the
+reference's parameters from ``PRNGKey(0)`` carried across by
+``params_from_numpy``.
 
-Bands: 1e-4 relative (max |diff| / max |ref|) in f32, where only the order
-of sums differs; 0.02 relative in bf16, the band of
-``tests/test_models.py::test_decode_matches_forward``, since the two
-frameworks round bf16 at different places. The prefill attention is the
+Bands (``tests/_torch_lm.py``): 1e-4 relative (max |diff| / max |ref|) in
+f32, where only the order of sums differs; 0.02 relative in bf16, the band
+of ``tests/test_models.py::test_decode_matches_forward``, against the
+reference run op by op (see ``_torch_lm``). The prefill attention is the
 flash kernel's plain version here (CPU tensors); the reference's is
-``chunked_attention``.
+``chunked_attention``. Per kind, as the reference's own tests do: the SSM
+takes a multiple of its chunk, the encoder-decoder frames, the vlm prefix
+embeddings, and decode == forward runs the MoE at capacity_factor 100 (no
+drops).
 """
 
 import dataclasses
@@ -19,6 +23,9 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_lm import (BAND, DTYPES, aux_input, caches, f32, jnp_or_none,
+                       leaves, pair, ref_mode, rel, seq_len, t_or_none,
+                       tokens)
 from _torch_parity import n, t
 from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke_config as ref_get_smoke
@@ -34,37 +41,10 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build
 from repro_torch.train.serve_step import make_prefill, make_serve_step
 
-DTYPES = {"f32": (jnp.float32, torch.float32),
-          "bf16": (jnp.bfloat16, torch.bfloat16)}
-BAND = {"f32": 1e-4, "bf16": 0.02}
-
-
-def _rel(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / (np.abs(want).max() + 1e-9)
-
-
-def _f32(a):
-    """torch tensor or JAX array -> float32 numpy."""
-    if isinstance(a, torch.Tensor):
-        return n(a.float())
-    return np.asarray(a, np.float32)
-
-
-def _pair(arch, dt):
-    """(reference model, reference params, port model, port params)."""
-    jdt, tdt = DTYPES[dt]
-    rcfg = dataclasses.replace(ref_get_smoke(arch), dtype=jdt)
-    pcfg = dataclasses.replace(get_smoke_config(arch), dtype=tdt)
-    rm = ref_build(rcfg)
-    rp = rm.init_params(jax.random.PRNGKey(0))
-    pp = lm.params_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
-    return rm, rp, build(pcfg), pp
-
-
-def _tokens(cfg, b, s, seed=1):
-    return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s),
-                                                dtype=np.int32)
+# the kinds this slice added
+NEW_KIND_ARCHS = ("llama4-maverick-400b-a17b", "dbrx-132b",
+                  "recurrentgemma-2b", "whisper-base", "internvl2-26b",
+                  "mamba2-2.7b")
 
 
 def _cfg_dict(cfg):
@@ -94,23 +74,22 @@ def test_configs_match_reference(arch, which):
             port.num_active_params()) == (ref.hd, ref.kv_heads,
                                           ref.num_params(),
                                           ref.num_active_params())
+    assert (port.attention_free, port.subquadratic, port._full_pattern()) \
+        == (ref.attention_free, ref.subquadratic, ref._full_pattern())
 
 
 def test_qwen2_0_5b_is_half_a_billion_parameters():
     assert get_config("qwen2-0.5b").num_params() == 494_004_224
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - set(PORTED)))
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_smoke_config(arch)
+def test_every_arch_is_ported():
+    assert PORTED == ARCHS
 
 
-@pytest.mark.parametrize("kind", ["moe", "ssm", "hybrid", "encdec"])
-def test_build_raises_on_unported_families(kind):
-    cfg = ModelConfig(arch="x", kind=kind, n_layers=1, d_model=64,
-                      n_heads=4, d_ff=128, vocab=64, n_experts=4, top_k=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
+def test_build_raises_on_an_unknown_kind():
+    cfg = ModelConfig(arch="x", kind="bogus", n_layers=1, d_model=64,
+                      n_heads=4, d_ff=128, vocab=64)
+    with pytest.raises(ValueError, match="unknown model kind"):
         build(cfg)
 
 
@@ -130,7 +109,7 @@ def test_rms_norm_matches_reference(dt):
                                jnp.asarray(s).astype(jdt), 1e-6)
     got = common.rms_norm(t(x).to(tdt), t(s).to(tdt), 1e-6)
     assert got.dtype == tdt
-    assert _rel(_f32(got), _f32(want)) <= (1e-6 if dt == "f32" else 8e-3)
+    assert rel(f32(got), f32(want)) <= (1e-6 if dt == "f32" else 8e-3)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -144,7 +123,7 @@ def test_rope_matches_reference(dt, theta):
                            theta)
     got = common.rope(t(x).to(tdt), t(pos), theta)
     assert got.dtype == tdt
-    assert _rel(_f32(got), _f32(want)) <= (1e-5 if dt == "f32" else 8e-3)
+    assert rel(f32(got), f32(want)) <= (1e-5 if dt == "f32" else 8e-3)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -157,7 +136,21 @@ def test_gated_ffn_matches_reference(dt, act):
     want = ref_ffn.gated_ffn(*(jnp.asarray(a).astype(jdt) for a in arrs),
                              act)
     got = ffn.gated_ffn(*(t(a).to(tdt) for a in arrs), act)
-    assert _rel(_f32(got), _f32(want)) <= (1e-5 if dt == "f32" else BAND[dt])
+    assert rel(f32(got), f32(want)) <= (1e-5 if dt == "f32" else BAND[dt])
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_activations_match_reference_bitwise_in_bf16(act):
+    """``common.silu`` and ``gelu`` chain the reference's ops in the input
+    dtype: equal to ``jax.nn.silu`` / ``jax.nn.gelu`` bit for bit in bf16,
+    where torch's fused versions, rounding once, are not."""
+    x = np.random.default_rng(4).normal(size=(20000,)).astype(np.float32) * 4
+    want = f32(getattr(jax.nn, act)(jnp.asarray(x, jnp.bfloat16)))
+    xt = t(x).to(torch.bfloat16)
+    np.testing.assert_array_equal(f32(getattr(common, act)(xt)), want)
+    fused = (torch.nn.functional.silu(xt) if act == "silu" else
+             torch.nn.functional.gelu(xt, approximate="tanh"))
+    assert (f32(fused) != want).any()
 
 
 def test_gelu_is_the_tanh_approximation():
@@ -182,7 +175,7 @@ def test_repeat_kv_and_plain_ffn_match_reference():
             for s in ((4, 9, 32), (32, 48), (48,), (48, 32), (32,))]
     want = ref_ffn.plain_ffn(*(jnp.asarray(a) for a in arrs), "gelu")
     got = ffn.plain_ffn(*(t(a) for a in arrs), "gelu")
-    assert _rel(n(got), np.asarray(want)) < 1e-5
+    assert rel(n(got), np.asarray(want)) < 1e-5
 
 
 def test_sinusoidal_positions_match_reference():
@@ -195,32 +188,46 @@ def test_sinusoidal_positions_match_reference():
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("arch", PORTED)
 def test_forward_and_logits_match_reference(arch, dt):
-    rm, rp, pm, pp = _pair(arch, dt)
-    tok = _tokens(pm.cfg, 2, 24)
-    rh, _ = rm.forward(rp, jnp.asarray(tok))
-    ph, aux = pm.forward(pp, t(tok))
-    assert ph.dtype == DTYPES[dt][1] and float(aux) == 0.0
-    assert _rel(_f32(ph), _f32(rh)) < BAND[dt]
-    assert _rel(_f32(pm.logits(pp, ph)), _f32(rm.logits(rp, rh))) < BAND[dt]
+    rm, rp, pm, pp = pair(arch, dt)
+    tok = tokens(pm.cfg, 2, seq_len(pm.cfg, 24))
+    aux = aux_input(pm.cfg, 2)
+    with ref_mode(dt):
+        rh, raux = rm.forward(rp, jnp.asarray(tok), jnp_or_none(aux))
+        rl = rm.logits(rp, rh)
+    ph, paux = pm.forward(pp, t(tok), t_or_none(aux))
+    assert ph.dtype == DTYPES[dt][1] and ph.shape == rh.shape
+    assert rel(f32(ph), f32(rh)) < BAND[dt]
+    assert rel(f32(pm.logits(pp, ph)), f32(rl)) < BAND[dt]
+    assert paux.dtype == torch.float32
+    if pm.cfg.kind == "moe":
+        assert float(paux) > 0
+        assert abs(float(paux) - float(raux)) <= BAND[dt] * float(raux)
+    else:
+        assert float(paux) == float(raux) == 0.0
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("arch", PORTED)
 def test_decode_steps_match_reference(arch, dt):
-    """16 cached decode steps, logits compared at every step."""
-    rm, rp, pm, pp = _pair(arch, dt)
+    """16 cached decode steps, logits compared at every step, and every
+    leaf of the cache after them."""
+    rm, rp, pm, pp = pair(arch, dt)
     b, s = 2, 16
-    tok = _tokens(pm.cfg, b, s, seed=2)
-    rc, pc = rm.init_cache(b, s), pm.init_cache(b, s, "cpu")
-    step = jax.jit(rm.decode_step)
-    for i in range(s):
-        rl, rc = step(rp, jnp.asarray(tok[:, i:i + 1]), rc,
-                      jnp.asarray(i, jnp.int32))
-        pl, pc = pm.decode_step(pp, t(tok[:, i:i + 1]), pc, i)
-        assert pl.shape == (b, 1, pm.cfg.vocab)
-        assert _rel(_f32(pl), _f32(rl)) < BAND[dt], (arch, dt, i)
-    assert _rel(_f32(pc["k"]), _f32(rc["k"])) < BAND[dt]
-    assert _rel(_f32(pc["v"]), _f32(rc["v"])) < BAND[dt]
+    tok = tokens(pm.cfg, b, s, seed=2)
+    with ref_mode(dt):
+        rc, pc = caches(rm, rp, pm, pp, b, s, aux_input(pm.cfg, b))
+        step = jax.jit(rm.decode_step)
+        for i in range(s):
+            rl, rc = step(rp, jnp.asarray(tok[:, i:i + 1]), rc,
+                          jnp.asarray(i, jnp.int32))
+            pl, pc = pm.decode_step(pp, t(tok[:, i:i + 1]), pc, i)
+            assert pl.shape == (b, 1, pm.cfg.vocab)
+            assert rel(f32(pl), f32(rl)) < BAND[dt], (arch, dt, i)
+    want = leaves(rc)
+    got = leaves(pc)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert rel(f32(got[k]), f32(want[k])) < BAND[dt], k
 
 
 def test_sinusoidal_dense_model_matches_reference():
@@ -233,44 +240,51 @@ def test_sinusoidal_dense_model_matches_reference():
     rm, pm = ref_build(jcfg), build(pcfg)
     rp = rm.init_params(jax.random.PRNGKey(0))
     pp = lm.params_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
-    tok = _tokens(pcfg, 2, 12)
+    tok = tokens(pcfg, 2, 12)
     rh, _ = rm.forward(rp, jnp.asarray(tok))
     ph, _ = pm.forward(pp, t(tok))
-    assert _rel(n(ph), np.asarray(rh)) < BAND["f32"]
+    assert rel(n(ph), np.asarray(rh)) < BAND["f32"]
     rc, pc = rm.init_cache(2, 12), pm.init_cache(2, 12, "cpu")
     for i in range(12):
         rl, rc = rm.decode_step(rp, jnp.asarray(tok[:, i:i + 1]), rc,
                                 jnp.asarray(i, jnp.int32))
         pl, pc = pm.decode_step(pp, t(tok[:, i:i + 1]), pc, i)
-        assert _rel(n(pl), np.asarray(rl)) < BAND["f32"], i
+        assert rel(n(pl), np.asarray(rl)) < BAND["f32"], i
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_forward(arch):
     """Step-by-step decode reproduces teacher-forced logits (the port of
-    ``tests/test_models.py::test_decode_matches_forward``)."""
-    _, _, m, params = _pair(arch, "bf16")
+    ``tests/test_models.py::test_decode_matches_forward``: the MoE at
+    capacity_factor 100, the encoder-decoder with its frames)."""
+    cap = {"capacity_factor": 100.0} if get_smoke_config(
+        arch).kind == "moe" else {}
+    _, _, m, params = pair(arch, "bf16", **cap)
     b, s = 2, 16
-    tok = t(_tokens(m.cfg, b, s))
-    h, _ = m.forward(params, tok)
-    ref = _f32(m.logits(params, h))
+    tok = t(tokens(m.cfg, b, s))
+    frames = aux_input(m.cfg, b)
+    use = t(frames) if m.cfg.kind == "encdec" else None
+    h, _ = m.forward(params, tok, use)
+    ref = f32(m.logits(params, h))
     cache = m.init_cache(b, s, "cpu")
+    if m.cfg.kind == "encdec":
+        from repro_torch.models import whisper
+        cache = whisper.prefill_cross(m.cfg, params, cache, use)
     outs = []
     for i in range(s):
         lg, cache = m.decode_step(params, tok[:, i:i + 1], cache, i)
-        outs.append(_f32(lg[:, 0]))
-    assert _rel(np.stack(outs, axis=1), ref) < 0.02
+        outs.append(f32(lg[:, 0]))
+    assert rel(np.stack(outs, axis=1), ref) < 0.02
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_serve_step_greedy_tokens_match_reference(arch):
-    rm, rp, pm, pp = _pair(arch, "f32")
+    rm, rp, pm, pp = pair(arch, "f32")
     b, prompt_len, new = 2, 8, 8
-    tok = _tokens(pm.cfg, b, prompt_len, seed=3)
+    tok = tokens(pm.cfg, b, prompt_len, seed=3)
     rserve = jax.jit(ref_make_serve_step(rm.cfg))
     pserve = make_serve_step(pm.cfg)
-    rc = rm.init_cache(b, prompt_len + new)
-    pc = pm.init_cache(b, prompt_len + new, "cpu")
+    rc, pc = caches(rm, rp, pm, pp, b, prompt_len + new, aux_input(pm.cfg, b))
     for i in range(prompt_len):
         rn, rc = rserve(rp, jnp.asarray(tok[:, i:i + 1]), rc,
                         jnp.asarray(i, jnp.int32))
@@ -286,8 +300,8 @@ def test_serve_step_greedy_tokens_match_reference(arch):
 
 
 def test_prefill_is_the_forward_and_launches_no_kernel_on_cpu():
-    _, _, m, params = _pair("qwen2-0.5b", "f32")
-    tok = t(_tokens(m.cfg, 2, 20))
+    _, _, m, params = pair("qwen2-0.5b", "f32")
+    tok = t(tokens(m.cfg, 2, 20))
     before = port_flash.flash_attention.launches
     h, _ = make_prefill(m.cfg)(params, tok)
     want, _ = m.forward(params, tok)
@@ -298,21 +312,23 @@ def test_prefill_is_the_forward_and_launches_no_kernel_on_cpu():
 @pytest.mark.parametrize("arch", PORTED)
 def test_init_cache_shapes(arch):
     cfg = get_smoke_config(arch)
-    ref = ref_build(ref_get_smoke(arch)).init_cache(3, 11)
-    got = build(cfg).init_cache(3, 11, "cpu")
+    ref = leaves(ref_build(ref_get_smoke(arch)).init_cache(3, 11))
+    got = leaves(build(cfg).init_cache(3, 11, "cpu"))
     assert {k: tuple(v.shape) for k, v in got.items()} == \
         {k: tuple(v.shape) for k, v in ref.items()}
-    assert all(v.dtype == torch.bfloat16 and not v.any()
-               for v in got.values())
+    for k, v in got.items():
+        assert str(v.dtype).removeprefix("torch.") == str(ref[k].dtype), k
+        assert not v.any(), k
 
 
-def test_init_params_keys_and_shapes_match_reference():
-    cfg = get_smoke_config("qwen2-7b")      # untied: has an unembed
-    ref = ref_build(ref_get_smoke("qwen2-7b")).init_params(
-        jax.random.PRNGKey(0))
-    got = build(cfg).init_params(torch.Generator().manual_seed(0))
-    shapes = jax.tree.map(lambda a: tuple(a.shape), ref)
-    assert jax.tree.map(lambda a: tuple(a.shape), got) == shapes
+@pytest.mark.parametrize("arch", PORTED)
+def test_init_params_keys_and_shapes_match_reference(arch):
+    ref = ref_build(ref_get_smoke(arch)).init_params(jax.random.PRNGKey(0))
+    got = build(get_smoke_config(arch)).init_params(
+        torch.Generator().manual_seed(0))
+    assert jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype).removeprefix(
+        "torch.")), got) == jax.tree.map(lambda a: (tuple(a.shape),
+                                                     str(a.dtype)), ref)
 
 
 def test_update_cache_writes_in_place():
@@ -337,6 +353,28 @@ def test_serve_lm_on_cpu_prints_the_reference_lines(capsys):
     assert lines[2].startswith("first row: [")
     row = eval(lines[2].removeprefix("first row: "))
     assert len(row) == 5 and all(0 <= x < 512 for x in row)
+
+
+@pytest.mark.parametrize("arch", NEW_KIND_ARCHS)
+def test_serve_lm_on_cpu_runs_every_new_kind(arch, capsys):
+    """Each kind this slice added, at its smoke config, in the reference
+    launcher's two-line form after the prefill line."""
+    serve_lm.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                   "--prompt-len", "16", "--tokens", "4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 3 and lines[0].startswith("prefill: ")
+    assert lines[1].startswith(f"arch={arch} generated 4 tokens x batch 2")
+    row = eval(lines[2].removeprefix("first row: "))
+    vocab = get_smoke_config(arch).vocab
+    assert len(row) == 4 and all(0 <= x < vocab for x in row)
+
+
+def test_serve_lm_refuses_an_ssm_prompt_off_its_chunk(capsys):
+    with pytest.raises(SystemExit):
+        serve_lm.main(["--device", "cpu", "--arch", "mamba2-2.7b",
+                       "--prompt-len", "20"])
+    err = capsys.readouterr().err
+    assert "--prompt-len 20" in err and "multiple of 16" in err
 
 
 def test_serve_lm_without_a_card_raises():
