@@ -125,7 +125,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    once each, and ``--autotune`` for 10 steps (one retune after its
    window of 8);
 11. one line of JSON with every kernel's numbers (launches summed over
-   the main paths, the engine's, phase 10's, phase 12's and phase 13's),
+   the main paths, the engine's, phase 10's, phase 12's, phase 13's and
+   phase 14's),
    then the result line;
 12. runtime parameters and the serving layer (run after phase 10), with
    the kernels' launch counts set to 0 before each of its paths and read
@@ -167,6 +168,30 @@ Phases (any failure raises and ends the run with a non-zero exit):
    256-token prompts so that routes drop), the MoE's experts and
    keep-masks equal.
 
+14. LM training (after phase 13), the flash launches set to 0 before
+   each train step and read after, weights from a seeded generator:
+   (a) qwen2-0.5b at full width and depth, bf16, AdamW with f32 state,
+   4 x 4,096 tokens a step, ``loss_chunk`` 512, remat, 6 steps on one
+   batch (lr 1e-3, 2 warm-up steps): loss and grad norm finite, the loss
+   falling from step 1 to step 6, 48 flash launches a step (24 in the
+   forward, 24 in the remat recompute; the backward launches none), ms a
+   step (median of steps 2..6), tokens/s, peak GiB, 6 N T over the bf16
+   peak, and the 1-step profile of a copy cut to 4 layers; (b) one step
+   with ``microbatches=2`` against one with 1 from the same state: params
+   within 5e-2; (c) one Adafactor step: finite; (d) one step of
+   recurrentgemma-2b, mamba2-2.7b, dbrx-132b, llama4-maverick and
+   internvl2 at their SMOKE configs and of whisper-base at full size
+   (4 x 448 tokens over 4 x 1,500 frames): loss and every gradient
+   finite, the MoE aux loss live, flash launches pinned; (e) card
+   against CPU in f32 for one step's loss (1e-5 relative) and every
+   gradient leaf (1e-4 of its max |grad|): qwen2-0.5b at full width cut
+   to 2 layers (2 x 256 tokens) and the SMOKE configs of dbrx, mamba2,
+   recurrentgemma and whisper; (f) ``launch.train --full
+   --arch qwen2-0.5b --steps 3 --batch 4 --seq 1024 --ckpt-every 2``, its
+   last line; (g) the restart drill in a subprocess with deterministic
+   algorithms (``run_training`` failing at step 7, ``resume_training``
+   from step 4's checkpoint): params and optimizer state bit for bit
+   those of the run without the failure.
 Exits non-zero and prints no result without a CUDA device, or when the
 port's sources are not beside this script.
 """
@@ -973,23 +998,24 @@ def profile_phase(dev, cfg, label, step_ms, steps):
         for _ in range(steps):
             state, _ = step(state)
         torch.cuda.synchronize()
-    report_profile(prof, f"a {label} step", steps, step_ms)
+    report_profile(prof.key_averages(), f"a {label} step", steps, step_ms)
     del state
     torch.cuda.empty_cache()
 
 
-def report_profile(prof, label, reps, host_ms):
+def report_profile(events, label, reps, host_ms):
     """Device time by operator and by kernel, per repetition, and the
     device's busy share of ``host_ms`` (the unprofiled host-clock time of
-    one repetition). Returns (device busy ms, kernels) a repetition, or
-    None when the profiler recorded no device time."""
+    one repetition), from a trace's ``key_averages()``. Returns (device
+    busy ms, kernels) a repetition, or None when the profiler recorded no
+    device time."""
     from torch.autograd import DeviceType
 
     # device kernels carry the device time; the aten ops that launched
     # them carry the same time again as their self device time, and so do
     # the engine's record_function ranges (engine/..., halo/...)
     kernels, ops = [], []
-    for e in prof.key_averages():
+    for e in events:
         if e.key.startswith(("engine/", "halo/")):
             continue
         if e.self_device_time_total > 0:
@@ -1700,7 +1726,8 @@ def profile_engine(ecfg, state, label, host_ms, steps=2):
         f"{kernel_sum / 1e3 / steps:.3f} ms summed over {n_streams} "
         f"streams; {overlap / 1e3 / steps:.3f} ms with two or more streams "
         f"running), {len(iv) / steps:.0f} device events a step")
-    report_profile(prof, f"an engine step {label}", steps, host_ms)
+    report_profile(prof.key_averages(), f"an engine step {label}", steps,
+                   host_ms)
     return busy / 1e3 / steps, overlap / 1e3 / steps
 
 
@@ -2799,8 +2826,8 @@ def serve_section(dev, cfg, solo, solo_ms, counters):
         svc.step(1)
         torch.cuda.synchronize()
     steady = statistics.median(times[1:k])
-    report_profile(prof, f"an ensemble step (W {SERVE_WIDTH}, §3.3)", 1,
-                   steady)
+    report_profile(prof.key_averages(),
+                   f"an ensemble step (W {SERVE_WIDTH}, §3.3)", 1, steady)
     if svc.stats()["compiles"] != built:
         raise AssertionError("(a) a kernel was built after the first step")
     log(f"phase 12 (a) SimService W {SERVE_WIDTH} at §3.3: "
@@ -3328,8 +3355,8 @@ def family_serve(dev, arch):
                                  ProfilerActivity.CUDA]) as prof:
             hidden, _ = prefill(params, tokens, aux)
             torch.cuda.synchronize()
-        report_profile(prof, f"one {arch} prefill of {b} x {s}", 1,
-                       times[-1])
+        report_profile(prof.key_averages(),
+                       f"one {arch} prefill of {b} x {s}", 1, times[-1])
         del hidden
     del tokens
     torch.cuda.empty_cache()
@@ -3374,8 +3401,9 @@ def family_serve(dev, arch):
                              ProfilerActivity.CUDA]) as prof:
         serve(params, nxt, cache, plen + SERVE_NEW)
         torch.cuda.synchronize()
-    prof_row = report_profile(prof, f"one {arch} decode step at batch {bs}",
-                              1, statistics.median(step_ms))
+    prof_row = report_profile(prof.key_averages(),
+                              f"one {arch} decode step at batch {bs}", 1,
+                              statistics.median(step_ms))
     out["decode_kernels"] = prof_row[1] if prof_row else None
     gen_tok = torch.cat(generated, dim=1)
     check_logits(f"{arch} decode", dec, cfg.vocab)
@@ -3621,6 +3649,421 @@ def family_phase(dev):
     return launches, nums
 
 
+# ---------------------------------------------------------------- phase 14 --
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 6
+TRAIN_FLASH = 48            # qwen2-0.5b: 24 forward + 24 remat recompute
+TRAIN_PROFILE_LAYERS = 4    # the depth of the profiled copy
+# one step each at their SMOKE configs (whisper-base at full size)
+TRAIN_SMOKE = ("recurrentgemma-2b", "mamba2-2.7b", "dbrx-132b",
+               "llama4-maverick-400b-a17b", "internvl2-26b")
+TRAIN_CARD_CPU = ((LM_ARCH, "CONFIG", dict(n_layers=2), 2, 256),
+                  ("dbrx-132b", "SMOKE", {}, 2, 64),
+                  ("mamba2-2.7b", "SMOKE", {}, 2, 64),
+                  ("recurrentgemma-2b", "SMOKE", {}, 2, 64),
+                  ("whisper-base", "SMOKE", {}, 2, 64))
+# f32 on both sides: the loss read equal and the gradients within 3.3e-6
+# of their max |grad|; a TF32 matmul would move them by ~1e-3
+TRAIN_LOSS_BAND, TRAIN_GRAD_BAND = 1e-5, 1e-4
+TRAIN_ARGV = ["--full", "--arch", LM_ARCH, "--steps", "3", "--batch", "4",
+              "--seq", "1024", "--ckpt-every", "2"]
+TRAIN_LINE = re.compile(r"^3 steps in [0-9.]+s; loss ([0-9.]+) -> "
+                        r"([0-9.]+)$")
+TRAIN_DIR = ROOT / "build" / "phase14"
+DRILL_FLAG = "--train-restart-drill"
+
+
+def train_flash_launches(cfg) -> int:
+    """Flash launches of one train step: one an attention in the forward,
+    again in the remat recompute of each checkpointed layer (the hybrid's
+    full pattern groups, not its tail); the backward launches none."""
+    if cfg.kind == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    if cfg.kind == "ssm":
+        return 0
+    if cfg.kind != "hybrid":
+        return 2 * cfg.n_layers
+    from repro_torch.models.lm import _hybrid_layers
+
+    return sum(2 if key.startswith("slot") else 1
+               for kind, key, _ in _hybrid_layers(cfg) if kind == "attn")
+
+
+def train_setup(cfg, dev, kind="adamw", microbatches=1, loss_chunk=512,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, params=None):
+    """(params, optimizer state, train step, batch 0 of the synthetic
+    pipeline) at ``tests/test_substrate.py``'s optimizer settings; the
+    params drawn from seed 0 unless given."""
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models.registry import build
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import TrainConfig, make_train_step
+
+    tcfg = TrainConfig(opt=opt.OptConfig(kind=kind, lr=1e-3,
+                                         warmup_steps=2),
+                       loss_chunk=loss_chunk, microbatches=microbatches,
+                       remat=True)
+    if params is None:
+        params = build(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(0))
+    data = synthetic_batch(DataConfig(seed=7, global_batch=batch,
+                                      seq_len=seq), cfg, 0, dev)
+    return (params, opt.init(params, tcfg.opt), make_train_step(cfg, tcfg),
+            data)
+
+
+def pinned_step(step, params, state, data, want, label):
+    """One train step with the flash launches pinned at ``want``; returns
+    (params, state, loss, grad norm, host ms)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, data)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = fa.flash_attention.launches
+    if n != want:
+        raise AssertionError(f"{label}: {n} flash launches, expected {want}")
+    if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        raise AssertionError(f"{label}: loss {loss}, grad norm {gnorm}")
+    return params, state, loss, gnorm, ms
+
+
+def tree_finite(tree) -> bool:
+    from repro_torch.train.optimizer import tree_leaves
+
+    return all(bool(torch.isfinite(x.float()).all())
+               for x in tree_leaves(tree))
+
+
+def train_profile(cfg, dev):
+    """Device time by operator of one train step at ``cfg``'s widths and
+    batch, cut to TRAIN_PROFILE_LAYERS layers: reading the trace of the
+    full depth's 65.6 K kernels takes ~44 s of host time. Returns the
+    flash launches of its four steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_PROFILE_LAYERS)
+    want = train_flash_launches(cut)
+    params, state, step, data = train_setup(cut, dev)
+    label = f"{LM_ARCH} cut to {TRAIN_PROFILE_LAYERS} layers"
+    times = []
+    for i in range(3):
+        params, state, _, _, ms = pinned_step(step, params, state, data,
+                                              want, f"{label} step {i + 1}")
+        times.append(ms)
+    ms = statistics.median(times[1:])
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, _, _, _ = pinned_step(step, params, state, data, want,
+                                             f"{label} profiled step")
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # one aggregation of the trace serves the report and the sums below
+    events = prof.key_averages()
+    report_profile(events, f"one train step of {label}, {TRAIN_BATCH} x "
+                   f"{TRAIN_SEQ}", 1, ms)
+    # the autograd engine runs each backward node inside a range of this
+    # name, whose device time totals the kernels launched in it: here the
+    # attention's (chunked_attention recomputed, and its gradient)
+    attn_bwd_ms = sum(
+        e.device_time_total for e in events if e.key ==
+        "autograd::engine::evaluate_function: _AttentionBackward") / 1e3
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if "flash_" in e.key) / 1e3
+    log(f"phase 14 (a) {label}: {ms:.3f} ms a step (median of steps 2..3); "
+        f"device ms inside the attention's backward: {attn_bwd_ms:.3f} "
+        f"({100 * attn_bwd_ms / ms:.1f} % of the step); the flash kernel: "
+        f"{flash_ms:.3f} ms for its {want} launches (0.000 "
+        f"means not measured); the profiled step took {t1 - t0:.1f} s and "
+        f"reading its trace {time.perf_counter() - t1:.1f} s")
+    del params, state, prof, events
+    torch.cuda.empty_cache()
+    return 4 * want
+
+
+def train_qwen(dev):
+    """(a), (b), (c): qwen2-0.5b at full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_config(LM_ARCH)
+    want = train_flash_launches(cfg)
+    if want != TRAIN_FLASH:
+        raise AssertionError(f"{LM_ARCH}: {want} flash launches a step")
+    params0, state0, step, data = train_setup(cfg, dev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out, launches = {}, 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, state, losses, norms, times = params0, state0, [], [], []
+    for i in range(TRAIN_STEPS):
+        params, state, loss, gnorm, ms = pinned_step(
+            step, params, state, data, want, f"{LM_ARCH} train step {i + 1}")
+        launches += want
+        losses.append(loss)
+        norms.append(gnorm)
+        times.append(ms)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{LM_ARCH}: the loss did not fall: {losses}")
+    out["ms"] = statistics.median(times[1:])
+    out["tok_s"] = tokens / (out["ms"] / 1e3)
+    out["flops"] = 6 * cfg.num_params() * tokens
+    out["peak_share"] = out["flops"] / (out["ms"] / 1e3 * BF16_FLOPS)
+    out["losses"] = losses
+    log(f"phase 14 (a) {LM_ARCH} train ({cfg.num_params() / 1e9:.3f} B "
+        f"parameters, bf16, AdamW f32 state, {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, loss_chunk 512, remat): losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}, host ms "
+        f"{[round(x, 3) for x in times]}; {out['ms']:.3f} ms a step (median "
+        f"of steps 2..{TRAIN_STEPS}), {out['tok_s']:.0f} tok/s, peak "
+        f"{out['peak_gib']:.2f} GiB, 6 N T = {out['flops'] / 1e12:.2f} TFLOP "
+        f"= {100 * out['peak_share']:.2f} % of the bf16 peak; {want} flash "
+        f"launches a step")
+    del params, state
+    torch.cuda.empty_cache()
+    launches += train_profile(cfg, dev)
+
+    # (b) microbatches 2 against 1 from the same state
+    p1, _, l1, _, _ = pinned_step(step, params0, state0, data, want,
+                                  f"{LM_ARCH} microbatches=1")
+    _, _, step2, _ = train_setup(cfg, dev, microbatches=2, params=params0)
+    p2, _, l2, _, _ = pinned_step(step2, params0, state0, data, 2 * want,
+                                  f"{LM_ARCH} microbatches=2")
+    launches += 3 * want
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    if not diff < 5e-2:
+        raise AssertionError(f"{LM_ARCH} microbatches 2 vs 1: params differ "
+                             f"by {diff}")
+    out["mb_diff"] = diff
+    log(f"phase 14 (b) {LM_ARCH} one step with microbatches=2 against 1: "
+        f"loss {l2:.5f} vs {l1:.5f}, params max |diff| {diff:.4g} (band "
+        f"5e-2)")
+    del p1, p2, step2
+    torch.cuda.empty_cache()
+
+    # (c) one Adafactor step
+    _, state_af, step_af, _ = train_setup(cfg, dev, kind="adafactor",
+                                          params=params0)
+    p_af, s_af, l_af, g_af, ms_af = pinned_step(
+        step_af, params0, state_af, data, want, f"{LM_ARCH} Adafactor")
+    launches += want
+    if not (tree_finite(p_af) and tree_finite(s_af)):
+        raise AssertionError(f"{LM_ARCH} Adafactor: a non-finite leaf")
+    log(f"phase 14 (c) {LM_ARCH} one Adafactor step: loss {l_af:.5f}, grad "
+        f"norm {g_af:.4f}, {ms_af:.3f} ms, params and state finite")
+    del params0, state0, state_af, p_af, s_af, data
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def train_families(dev):
+    """(d): one step of each other family; returns the flash launches."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import tree_leaves
+
+    launches, rows = 0, []
+    runs = [(a, get_smoke_config(a), 2, 256) for a in TRAIN_SMOKE]
+    runs.append(("whisper-base", get_config("whisper-base"), 4, 448))
+    for arch, cfg, b, s in runs:
+        want = train_flash_launches(cfg)
+        params, state, step, data = train_setup(cfg, dev, loss_chunk=256,
+                                                batch=b, seq=s)
+        p1, s1, loss, gnorm, ms = pinned_step(step, params, state, data,
+                                              want, f"{arch} train step")
+        launches += want
+        if not (tree_finite(p1) and tree_finite(s1)):
+            raise AssertionError(f"{arch}: a non-finite leaf after a step")
+        line = ""
+        if cfg.kind == "moe":
+            with torch.no_grad():
+                _, aux = lm.forward(cfg, params, data["tokens"])
+            aux = float(aux)
+            if not (math.isfinite(aux) and aux > 0):
+                raise AssertionError(f"{arch}: MoE aux loss {aux}")
+            line = f", aux {aux:.4f}"
+        n_par = sum(x.numel() for x in tree_leaves(params))
+        rows.append(f"{arch} {want}")
+        size = "full" if arch == "whisper-base" else "SMOKE"
+        log(f"phase 14 (d) {arch} ({size}, {n_par / 1e6:.2f} M parameters) "
+            f"one step on {b} x {s}: loss "
+            f"{loss:.4f}, grad norm {gnorm:.4f}, {ms:.1f} ms, {want} flash "
+            f"launches{line}")
+        del params, state, p1, s1, data
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
+def train_card_vs_cpu(dev):
+    """(e): one step's loss and gradients in f32, card against CPU."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.models.registry import build
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import TrainConfig, value_and_grad
+
+    worst = {}
+    for arch, which, cut, b, s in TRAIN_CARD_CPU:
+        base = (get_config if which == "CONFIG" else get_smoke_config)(arch)
+        cfg = dataclasses.replace(base, dtype=torch.float32, **cut)
+        tcfg = TrainConfig(loss_chunk=128)
+        cpu = build(cfg).init_params(torch.Generator().manual_seed(3))
+        data = synthetic_batch(DataConfig(seed=4, global_batch=b,
+                                          seq_len=s), cfg, 0, "cpu")
+        l_cpu, g_cpu = value_and_grad(cfg, tcfg, cpu, data)
+        l_card, g_card = value_and_grad(cfg, tcfg, tree_to(cpu, dev),
+                                        tree_to(data, dev))
+        r_loss = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        r_grad = max(rel_err(a.cpu(), b)
+                     for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu))
+                     if float(b.abs().max()) > 0)
+        if not (r_loss < TRAIN_LOSS_BAND and r_grad < TRAIN_GRAD_BAND):
+            raise AssertionError(f"{arch} train card vs CPU: loss rel "
+                                 f"{r_loss}, worst grad rel {r_grad}")
+        worst[arch] = (r_loss, r_grad)
+        log(f"phase 14 (e) {arch} ({which}, {cfg.n_layers} layers, f32, "
+            f"{b} x {s}) one step card vs CPU: loss {float(l_card):.6f} vs "
+            f"{float(l_cpu):.6f} (rel {r_loss:.3g}), worst gradient leaf "
+            f"{r_grad:.3g} of its max |grad|")
+        del cpu, g_cpu, g_card
+        torch.cuda.empty_cache()
+    return worst
+
+
+def train_launcher():
+    """(f): the launcher at full width; returns its flash launches."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    buf = io.StringIO()
+    fa.flash_attention.launches = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            train.main(TRAIN_ARGV + ["--ckpt-dir", str(TRAIN_DIR / "launch")])
+        if not (TRAIN_DIR / "launch" / "step_00000002" /
+                "manifest.json").exists():
+            raise AssertionError("launch.train wrote no step-2 checkpoint")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    n = fa.flash_attention.launches
+    last = buf.getvalue().strip().splitlines()[-1]
+    m = TRAIN_LINE.match(last)
+    if not m or n != 3 * TRAIN_FLASH:
+        raise AssertionError(f"launch.train {' '.join(TRAIN_ARGV)}: last line"
+                             f" {last!r}, {n} flash launches")
+    log(f"phase 14 (f) python -m repro_torch.launch.train "
+        f"{' '.join(TRAIN_ARGV)}: {last!r}, {n} flash launches")
+    torch.cuda.empty_cache()
+    return n
+
+
+def restart_drill_child(directory, dev=None) -> int:
+    """(g), in its own process: 10 steps of qwen2-0.5b's SMOKE config with
+    a checkpoint every 4; a run that fails at step 7 resumes from step 4
+    and must end bit for bit where the run without the failure ends."""
+    import os
+
+    from repro_torch.ckpt.checkpoint import Checkpointer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.runtime.fault_tolerance import (FailureInjector,
+                                                     SimulatedFailure,
+                                                     resume_training,
+                                                     run_training)
+    from repro_torch.train.optimizer import tree_leaves
+
+    torch.use_deterministic_algorithms(True)
+    dev = dev or torch.device("cuda", 0)
+    cfg = get_smoke_config(LM_ARCH)
+    params0, state0, step, _ = train_setup(cfg, dev, loss_chunk=128,
+                                           seq=256)
+    dcfg = DataConfig(seed=7, global_batch=TRAIN_BATCH, seq_len=256)
+
+    def batch_fn(i):
+        return synthetic_batch(dcfg, cfg, i, dev)
+
+    kw = dict(num_steps=10, ckpt_every=4)
+    p_ref, s_ref, _ = run_training(
+        step, batch_fn, params0, state0,
+        ckpt=Checkpointer(os.path.join(directory, "ref")), **kw)
+    ck = Checkpointer(os.path.join(directory, "crash"))
+    try:
+        run_training(step, batch_fn, params0, state0, ckpt=ck,
+                     injector=FailureInjector(fail_at_step=7), **kw)
+        raise AssertionError("the injected failure did not fire")
+    except SimulatedFailure:
+        pass
+    if ck.latest_step() != 4:
+        raise AssertionError(f"latest checkpoint {ck.latest_step()}, not 4")
+    p_res, s_res, log_res = resume_training(
+        step, batch_fn, ckpt=ck, like={"params": params0, "opt": state0},
+        **kw)
+    pairs = list(zip(tree_leaves({"p": p_ref, "s": s_ref}),
+                     tree_leaves({"p": p_res, "s": s_res})))
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    print(f"restart drill: {len(log_res)} steps resumed from step 4, "
+          f"{same}/{len(pairs)} leaves bit for bit, last loss "
+          f"{log_res[-1]['loss']:.6f}")
+    return 0 if same == len(pairs) else 1
+
+
+def train_restart_drill():
+    """(g): the drill in a subprocess with deterministic algorithms."""
+    import os
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    directory = TRAIN_DIR / "drill"
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                              DRILL_FLAG, str(directory)], env=env,
+                             capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"the training restart drill failed "
+                             f"(rc {out.returncode}): {out.stdout[-2000:]}"
+                             f"{out.stderr[-4000:]}")
+    log(f"phase 14 (g) {lines[-1]} (deterministic algorithms, "
+        f"CUBLAS_WORKSPACE_CONFIG=:4096:8)")
+
+
+def train_phase(dev):
+    """Phase 14. Returns (flash launches of its train steps, numbers)."""
+    t0 = time.perf_counter()
+    marks = [t0]
+
+    def mark():
+        marks.append(time.perf_counter())
+
+    launches, nums = train_qwen(dev)
+    mark()
+    n, nums["families"] = train_families(dev)
+    launches += n
+    mark()
+    nums["card_vs_cpu"] = train_card_vs_cpu(dev)
+    mark()
+    launches += train_launcher()
+    mark()
+    train_restart_drill()
+    mark()
+    nums["seconds"] = marks[-1] - t0
+    nums["part_s"] = [round(b - a, 1) for a, b in zip(marks, marks[1:])]
+    return launches, nums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3631,6 +4074,8 @@ def main() -> int:
               f"{Path(__file__).name}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == [DRILL_FLAG]:
+        return restart_drill_child(sys.argv[2])
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
@@ -3674,6 +4119,8 @@ def main() -> int:
         counts[k] += engine_counts[k] + obs_counts[k] + serve_counts[k]
     kernels["flash_attention"] = flash_phase(dev)
     counts["flash_attention"], fam = family_phase(dev)
+    train_launches, trn = train_phase(dev)
+    counts["flash_attention"] += train_launches
 
     log("kernels: " + "; ".join(
         f"{k} launches={counts[k]} max_abs_err={kernels[k]['max_abs_err']:.3g}"
@@ -3716,6 +4163,16 @@ def main() -> int:
             + (f", {100 * r['dropped']:.3f} % routes dropped"
                if "dropped" in r else ""))
     log(f"LM phases: {fam['seconds']:.1f} s")
+    log(f"LM train {LM_ARCH} ({TRAIN_BATCH} x {TRAIN_SEQ}, bf16, AdamW, "
+        f"remat): {trn['ms']:.3f} ms/step, {trn['tok_s']:.0f} tok/s, peak "
+        f"{trn['peak_gib']:.2f} GiB, {100 * trn['peak_share']:.2f} % of the "
+        f"bf16 peak, {TRAIN_FLASH} flash launches a step; microbatches 2 vs "
+        f"1 {trn['mb_diff']:.3g}; flash launches a step by family "
+        f"{trn['families']}; card vs CPU (loss rel, worst grad rel) "
+        + ", ".join(f"{a} ({r[0]:.2g}, {r[1]:.2g})"
+                    for a, r in trn["card_vs_cpu"].items())
+        + f"; phase 14 {trn['seconds']:.1f} s ((a-c), (d), (e), (f), (g): "
+        f"{trn['part_s']} s)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     rows = []

@@ -1,8 +1,22 @@
-"""Attention for cached decode (the port of ``repro.models.attention``).
+"""Attention: the chunked streaming softmax of training, the differentiable
+attention of the forward, and cached decode (the port of
+``repro.models.attention``).
 
-The prefill/training path of the reference, ``chunked_attention``, is not
-ported: ``kernels.ops.flash_attention`` computes the same function and takes
-its place in ``models.lm._attn_apply`` (the tests hold the two equal).
+``chunked_attention`` is the reference's training and prefill path: q/kv
+chunks with an online softmax (running max and denominator), GQA folded as
+(kv heads, group) so K/V are never repeated, causal and windowed masks,
+``q_offset`` and ``p_bf16``. It is plain PyTorch, as the reference
+computes it outside any Pallas kernel, and autograd differentiates it as
+``jax.grad`` does the reference's.
+
+``attention`` is what ``models.lm`` and ``models.whisper`` call: a
+``torch.autograd.Function`` whose forward is the flash-attention kernel
+(``kernels.ops.flash_attention``: the hand-written kernel on a CUDA tensor,
+its plain version on a CPU tensor) and whose backward recomputes
+``chunked_attention`` at the reference's chunk sizes (q 512, kv 1,024) and
+returns its gradient. So every forward, the remat recompute included, runs
+the kernel, and the gradient is the one the reference trains with. The
+flash kernel has no backward, in the reference as here.
 
 Decode attends one query position against the full cache: the score row is
 only (b, h, s), so it is computed directly, grouped-GQA without repeating
@@ -12,6 +26,9 @@ the cache. The KV cache layout is (b, s_max, kv_heads, hd).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
@@ -21,6 +38,104 @@ def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
     if groups == 1:
         return x
     return torch.repeat_interleave(x, groups, dim=2)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_chunk: int = 512, kv_chunk: int = 1024,
+                      q_offset: int = 0,
+                      p_bf16: bool = False) -> torch.Tensor:
+    """Streaming softmax attention, grouped-GQA form.
+
+    q: (b, sq, h, hd); k, v: (b, skv, kvh, hd) with h % kvh == 0.
+    window > 0 restricts attention to the last ``window`` keys (local
+    attention); ``q_offset`` is the absolute position of q[0] relative to
+    k[0]; ``p_bf16`` rounds the probabilities to bf16 for the PV product
+    (the statistics stay f32). As in the reference: q times the scale in
+    q's dtype, padded to whole chunks, every (q, kv) chunk pair computed
+    (masked scores at NEG_INF), the products in f32 from the operands'
+    values (a bf16 product is exact in f32: the reference's
+    ``preferred_element_type=f32``).
+    """
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    grp = h // kvh
+    f32 = torch.float32
+    dev = q.device
+    nq, nk = -(-sq // q_chunk), -(-skv // kv_chunk)
+
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - skv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - skv))
+    # the scale rounded to q's dtype first, as a weakly typed constant is
+    scale = torch.tensor(hd ** -0.5, dtype=q.dtype, device=dev)
+    qs = qp.reshape(b, nq, q_chunk, kvh, grp, hd) * scale
+    ks = kp.reshape(b, nk, kv_chunk, kvh, hd)
+    vs = vp.reshape(b, nk, kv_chunk, kvh, hd)
+    q_pos_base = torch.arange(q_chunk, device=dev)
+    k_pos_base = torch.arange(kv_chunk, device=dev)
+
+    outs = []
+    for qi in range(nq):
+        qc = qs[:, qi].to(f32)
+        # online softmax state: (out, running max, running denominator)
+        o = torch.zeros((b, q_chunk, kvh, grp, hd), dtype=f32, device=dev)
+        m = torch.full((b, q_chunk, kvh, grp), NEG_INF, dtype=f32,
+                       device=dev)
+        d = torch.zeros((b, q_chunk, kvh, grp), dtype=f32, device=dev)
+        qpos = qi * q_chunk + q_pos_base + q_offset
+        for ki in range(nk):
+            s_blk = torch.einsum("bqhgd,bkhd->bqhgk", qc, ks[:, ki].to(f32))
+            kpos = ki * kv_chunk + k_pos_base
+            mask = (kpos < skv)[None, :]                     # pad mask
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window > 0:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            s_blk = torch.where(mask[None, :, None, None, :], s_blk, NEG_INF)
+            m_new = torch.maximum(m, s_blk.amax(dim=-1))
+            p = torch.exp(s_blk - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            d = d * corr + p.sum(dim=-1)
+            if p_bf16:
+                p = p.to(torch.bfloat16).to(f32)
+            o = o * corr[..., None] + torch.einsum(
+                "bqhgk,bkhd->bqhgd", p, vs[:, ki].to(f32))
+            m = m_new
+        outs.append(o / torch.clamp(d[..., None], min=1e-30))
+    out = torch.stack(outs, dim=1).reshape(b, nq * q_chunk, h, hd)
+    return out[:, :sq].to(q.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: the flash kernel. Backward: the gradient of
+    ``chunked_attention`` on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = chunked_attention(*ins, causal=ctx.causal,
+                                    window=ctx.window)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, need) if n], grad_out))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The differentiable attention of the models' forward: q (b, sq, h,
+    hd) against k, v (b, skv, kvh, hd) through the flash kernel, with
+    ``chunked_attention``'s gradient. Returns q's shape and dtype."""
+    return _Attention.apply(q, k, v, causal, window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

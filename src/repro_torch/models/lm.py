@@ -2,11 +2,12 @@
 of ``repro.models.lm``; the encoder-decoder is ``models.whisper``).
 
 Parameters stay stacked along a leading layer axis with the reference's
-keys; the passes are Python loops over layers. The prefill attention of
-every attention layer is one launch of the flash-attention kernel
-(``kernels.ops.flash_attention``) where the reference calls
-``chunked_attention``; decode attends against the cache in plain PyTorch,
-as the reference does. The MoE router (``models.moe``), the SSD scan
+keys; the passes are Python loops over layers. The attention of every
+attention layer is ``models.attention.attention``: one launch of the
+flash-attention kernel in the forward (where the reference calls
+``chunked_attention``), and ``chunked_attention``'s gradient in the
+backward. Decode attends against the cache in plain PyTorch, as the
+reference does. The MoE router (``models.moe``), the SSD scan
 (``models.mamba2``) and the RG-LRU scan (``models.rglru``) are plain
 PyTorch, as the reference computes them outside any Pallas kernel.
 
@@ -18,7 +19,8 @@ leading axis of 1; ``_hybrid_layers`` walks them in depth order.
 Public API:
   init_params(cfg, gen)                          -> param dict
   params_from_numpy(tree, device)                -> param dict
-  forward(cfg, params, tokens, prefix_embeds)    -> (final-normed hidden, aux)
+  forward(cfg, params, tokens, prefix_embeds, remat)
+                                                 -> (final-normed hidden, aux)
   logits_fn(cfg, params, hidden)                 -> logits
   init_cache(cfg, batch, s_max, device)          -> decode cache
   decode_step(cfg, params, token, cache, pos)    -> (logits, cache)
@@ -32,11 +34,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
 from repro_torch.models import mamba2, rglru
-from repro_torch.models.attention import decode_attention, update_cache
+from repro_torch.models.attention import (attention, decode_attention,
+                                          update_cache)
 from repro_torch.models.common import (ModelConfig, dense_init, gelu,
                                        rms_norm, rope, silu,
                                        sinusoidal_positions)
@@ -222,7 +225,7 @@ def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    out = attention(q, k, v, causal=causal, window=window)
     out = out.reshape(b, s, cfg.n_heads * cfg.hd)
     return x + torch.matmul(out, p["wo"])
 
@@ -324,11 +327,16 @@ def _rg_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-            prefix_embeds: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            prefix_embeds: torch.Tensor | None = None,
+            remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (b, s_total, d) after the final norm, the MoE aux
-    loss summed over layers, 0 for the other families). The reference's
-    ``remat`` is a training option and is not ported."""
+    loss summed over layers, 0 for the other families).
+
+    remat=True checkpoints each layer (each full pattern group of the
+    hybrid; its tail layers stay unwrapped, as in the reference): the
+    backward recomputes the layer's forward, flash launches included,
+    from its saved input.
+    """
     x = _embed(cfg, params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
@@ -338,25 +346,46 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_positions(s, d, x.device).to(cfg.dtype)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(body, *args):
+        if remat:
+            return checkpoint(body, *args, use_reentrant=False)
+        return body(*args)
+
     if cfg.kind in ("dense", "moe", "vlm"):
-        for i in range(cfg.n_layers):
-            lp = _layer(params["blocks"], i)
-            x = _attn_apply(cfg, lp["attn"], x, positions,
+        def body(h, lp):
+            h = _attn_apply(cfg, lp["attn"], h, positions,
                             window=cfg.local_window)
-            x, aux = _ffn_apply(cfg, lp["ffn"], x)
+            return _ffn_apply(cfg, lp["ffn"], h)
+
+        for i in range(cfg.n_layers):
+            x, aux = run(body, x, _layer(params["blocks"], i))
             aux_total = aux_total + aux
     elif cfg.kind == "ssm":
         for i in range(cfg.n_layers):
-            x = _ssm_apply(cfg, _layer(params["blocks"], i), x)
+            x = run(_ssm_apply, cfg, _layer(params["blocks"], i), x)
     elif cfg.kind == "hybrid":
+        def group(h, layers):
+            for kind, lp in layers:
+                if kind == "attn":
+                    h = _attn_apply(cfg, lp["mix"], h, positions,
+                                    window=cfg.local_window)
+                else:
+                    h, _, _ = _rg_apply(cfg, lp["mix"], h)
+                h, _ = _ffn_apply(cfg, lp["ffn"], h)
+            return h
+
+        groups: dict[int, list] = {}
+        tail = []
         for kind, key, j in _hybrid_layers(cfg):
             lp = _layer(_hybrid_params(params, key), j)
-            if kind == "attn":
-                x = _attn_apply(cfg, lp["mix"], x, positions,
-                                window=cfg.local_window)
+            if key.startswith("slot"):
+                groups.setdefault(j, []).append((kind, lp))
             else:
-                x, _, _ = _rg_apply(cfg, lp["mix"], x)
-            x, _ = _ffn_apply(cfg, lp["ffn"], x)
+                tail.append((kind, lp))
+        for layers in groups.values():
+            x = run(group, x, layers)
+        x = group(x, tail)
     else:
         raise ValueError(cfg.kind)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

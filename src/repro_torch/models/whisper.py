@@ -7,9 +7,11 @@ encoder and a causal decoder with cross-attention, RMSNorm and sinusoidal
 positions on both sides (the reference's stand-ins for LayerNorm and
 learned positions).
 
-Every attention of the forward is one launch of the flash kernel: the
-encoder's self-attention non-causal, the decoder's causal, the
-cross-attention non-causal with Sq != Skv. Decode attends against the KV
+Every attention of the forward is ``models.attention.attention``, one
+launch of the flash kernel (with ``chunked_attention``'s gradient in the
+backward): the encoder's self-attention non-causal, the decoder's causal,
+the cross-attention non-causal with Sq != Skv. As in the reference, the
+forward has no ``remat``. Decode attends against the KV
 cache and against the encoder's K/V, which ``prefill_cross`` computes once
 and writes into the cache, in plain PyTorch.
 """
@@ -19,9 +21,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
 from repro_torch.models import lm
-from repro_torch.models.attention import decode_attention
+from repro_torch.models.attention import attention, decode_attention
 from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
                                        sinusoidal_positions)
 
@@ -90,7 +91,7 @@ def _cross_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     q = torch.matmul(xn, p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
     k, v = _cross_kv(cfg, p, enc)
-    out = ops.flash_attention(q, k, v, causal=False)
+    out = attention(q, k, v, causal=False)
     return x + torch.matmul(out.reshape(b, s, cfg.n_heads * cfg.hd),
                             p["wo"])
 

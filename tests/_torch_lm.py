@@ -118,3 +118,14 @@ def leaves(tree, prefix=""):
         else:
             out[prefix + k] = v
     return out
+
+
+def batches(cfg, b=2, s=16, seed=1):
+    """A training batch for both packages, (reference's, port's): tokens,
+    and the stub frontend's input for the encoder-decoder and the vlm."""
+    tok = tokens(cfg, b, s, seed)
+    aux = aux_input(cfg, b)
+    rb, pb = {"tokens": jnp.asarray(tok)}, {"tokens": t(tok)}
+    if aux is not None:
+        rb["frontend"], pb["frontend"] = jnp.asarray(aux), t(aux)
+    return rb, pb

@@ -234,6 +234,18 @@ def test_obs_ckpt_runtime_import_with_jax_blocked():
                    "_sinusoid_row")),
     ("models.registry", ("Model", "build")),
     ("train.serve_step", ("make_serve_step", "make_prefill")),
+    ("train.optimizer", ("OptConfig", "quantize_int8", "dequantize_int8",
+                         "compress_with_feedback", "init_adamw",
+                         "_global_norm", "adamw_update", "init_adafactor",
+                         "adafactor_update", "init", "update", "_schedule")),
+    ("train.train_step", ("TrainConfig", "chunked_ce_loss", "loss_fn",
+                          "make_train_step")),
+    ("data.pipeline", ("DataConfig", "shard_batch_size", "synthetic_shard",
+                       "synthetic_batch")),
+    ("runtime.elastic", ("reshard_state", "reshard_via_checkpoint")),
+    ("models.attention", ("repeat_kv", "chunked_attention",
+                          "decode_attention", "update_cache")),
+    ("launch.train", ("main",)),
 ])
 def test_ported_modules_have_the_reference_names(module, names):
     """Each ported module has the reference's public names; ``obs`` has the
@@ -250,3 +262,25 @@ def test_ported_modules_have_the_reference_names(module, names):
     for name in names:
         assert hasattr(ref, name) or name == "trace_scope_names", name
         assert hasattr(port, name), name
+
+
+def test_training_modules_import_with_jax_blocked():
+    """The training slice (optimizers, train step, data, elastic, the
+    launcher and the differentiable attention) imports with JAX and the
+    reference blocked."""
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['jaxlib'] = None; sys.modules['repro'] = None\n"
+            "from repro_torch.train import optimizer, train_step\n"
+            "from repro_torch.data import pipeline\n"
+            "import repro_torch.data\n"
+            "from repro_torch.runtime import elastic\n"
+            "from repro_torch.models.attention import attention, "
+            "chunked_attention\n"
+            "import repro_torch.launch.train\n"
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(ROOT / "src"),
+                                         "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
