@@ -125,8 +125,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    once each, and ``--autotune`` for 10 steps (one retune after its
    window of 8);
 11. one line of JSON with every kernel's numbers (launches summed over
-   the main paths, the engine's, phase 10's, phase 12's, phase 13's and
-   phase 14's),
+   the main paths, the engine's, phase 10's, phase 12's, phase 13's,
+   phase 14's and phase 15's),
    then the result line;
 12. runtime parameters and the serving layer (run after phase 10), with
    the kernels' launch counts set to 0 before each of its paths and read
@@ -192,6 +192,27 @@ Phases (any failure raises and ends the run with a non-zero exit):
    algorithms (``run_training`` failing at step 7, ``resume_training``
    from step 4's checkpoint): params and optimizer state bit for bit
    those of the run without the failure.
+15. the mesh, the dry-run and the roofline (after phase 14), the
+   kernels' launch counts set to 0 before each path and read after: (a)
+   phase 14's qwen2-0.5b run (full width and depth, bf16 seeded weights,
+   4 x 4,096 tokens of ``data.pipeline`` seed 7, AdamW, remat,
+   ``loss_chunk`` 512) for 2 steps plain and 2 steps on
+   ``make_debug_mesh(1, 1)`` over NCCL at world 1, every parameter and
+   moment a DTensor placed by ``sharding.rules`` (the path of
+   ``launch.train --full --mesh debug``): the losses and every parameter
+   leaf equal bit for bit, 48 flash launches a step through the
+   registered operator, host ms a step of both; (c) one more mesh step
+   under ``roofline.analysis.CostMode``: the counted FLOPs at least
+   ``dryrun.model_flops`` for 4 x 4,096 tokens (6 N T), the flash
+   operator's share 48 times its formula, t_compute and t_memory at the
+   H100 constants beside the measured ms; (a') ``launch.train --full
+   --mesh debug`` for 2 steps at 4 x 1,024, its last line, its
+   checkpoint and its group stopped; (b) ``dryrun.run_cell`` of
+   qwen2-0.5b x train_4k on the 16 x 16 mesh and x decode_32k on the 2 x
+   16 x 16 mesh, traced under torch's fake process group at world 512 in
+   this process (both ``ok``, useful flops ratio <= 1), and
+   ``run_pic_dryrun`` at D 16 for one real engine step on the card; the
+   rows in ``roofline.report``'s table.
 Exits non-zero and prints no result without a CUDA device, or when the
 port's sources are not beside this script.
 """
@@ -3712,6 +3733,13 @@ def train_setup(cfg, dev, kind="adamw", microbatches=1, loss_chunk=512,
             data)
 
 
+def scalar(x) -> float:
+    """A 0-d tensor (a DTensor's full value) as a float."""
+    from repro_torch.sharding.rules import is_dtensor
+
+    return float(x.full_tensor() if is_dtensor(x) else x)
+
+
 def pinned_step(step, params, state, data, want, label):
     """One train step with the flash launches pinned at ``want``; returns
     (params, state, loss, grad norm, host ms)."""
@@ -3721,7 +3749,7 @@ def pinned_step(step, params, state, data, want, label):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params, state, m = step(params, state, data)
-    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    loss, gnorm = scalar(m["loss"]), scalar(m["grad_norm"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     n = fa.flash_attention.launches
@@ -4064,6 +4092,264 @@ def train_phase(dev):
     return launches, nums
 
 
+# --------------------------------------------------------------- phase 15 --
+
+MESH_STEPS = 2
+# the dry-run's cells: (shape, multi-pod, mesh name)
+DRYRUN_CELLS = (("train_4k", False, "pod16x16"),
+                ("decode_32k", True, "multipod2x16x16"))
+MESH_ARGV = ["--full", "--arch", LM_ARCH, "--steps", "2", "--batch", "4",
+             "--seq", "1024", "--ckpt-every", "2", "--mesh", "debug"]
+MESH_LINE = re.compile(r"^2 steps in [0-9.]+s; loss ([0-9.]+) -> "
+                       r"([0-9.]+)$")
+
+
+def mesh_train(dev):
+    """(a) and (c): phase 14's qwen2-0.5b run, plain and on the 1 x 1
+    DTensor mesh over NCCL at world 1 (the path of ``launch.train --full
+    --mesh debug``), then one mesh step under the roofline counters.
+    Returns (flash launches, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.roofline import analysis
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.rules import is_dtensor
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_config(LM_ARCH)
+    out, launches = {}, 0
+    # the registered operator's dispatch against the wrapper's, at the
+    # qwen2 prefill shape (CUDA events around each call; these launches
+    # are no path's)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(8, 4096, n, cfg.hd, generator=gen, device=dev)
+               .to(torch.bfloat16) for n in (cfg.n_heads, cfg.kv_heads,
+                                             cfg.kv_heads))
+    calls = {"wrapper": lambda: fa.flash_attention(q, k, v, causal=True),
+             "operator": lambda: torch.ops.repro_torch.flash_attention(
+                 q, k, v, True, 0)}
+    op_ms = {}
+    for name in ("wrapper", "operator", "operator", "wrapper"):
+        op_ms.setdefault(name, []).append(median_ms(calls[name], 20))
+    out["op_ms"] = op_ms
+    log(f"phase 15 (a) flash at (8, 4096, 14, 64) bf16, causal, median of "
+        f"20 calls by CUDA events: the wrapper {op_ms['wrapper']} ms, "
+        f"torch.ops.repro_torch.flash_attention {op_ms['operator']} ms")
+    del q, k, v, calls
+    params0, state0, step, data = train_setup(cfg, dev)
+    runs = {}
+    p, s = params0, state0
+    for label in ("plain", "mesh"):
+        if label == "mesh":
+            mesh = mesh_lib.make_debug_mesh(1, 1, device=dev.type)
+            pspecs = rules.param_specs(cfg, params0, mesh)
+            p = rules.distribute(params0, pspecs, mesh)
+            s = rules.distribute(state0, rules.opt_state_specs(
+                "adamw", pspecs, params0, mesh), mesh)
+            mdata = rules.distribute(
+                data, {k: rules.Spec(rules.batch_axes(mesh)) for k in data},
+                mesh)
+            if not all(is_dtensor(x) for x in tree_leaves({"p": p, "s": s})):
+                raise AssertionError("phase 15 (a): a leaf is no DTensor")
+        losses, times = [], []
+        for i in range(MESH_STEPS):
+            p, s, loss, _, ms = pinned_step(
+                step, p, s, data if label == "plain" else mdata, TRAIN_FLASH,
+                f"phase 15 (a) {label} step {i + 1}")
+            launches += TRAIN_FLASH
+            losses.append(loss)
+            times.append(ms)
+        runs[label] = (p, s, losses, times)
+        if label == "plain":
+            p, s = params0, state0
+    (pp, sp, lp, tp), (pm, sm, lm_, tm) = runs["plain"], runs["mesh"]
+    leaves = list(zip(tree_leaves(pp), tree_leaves(pm)))
+    same = sum(torch.equal(a, b.full_tensor()) for a, b in leaves)
+    states = list(zip(tree_leaves(sp), tree_leaves(sm)))
+    same_s = sum(torch.equal(a, b.full_tensor()) for a, b in states)
+    if lp != lm_ or same != len(leaves):
+        raise AssertionError(f"phase 15 (a): the mesh step is not the plain "
+                             f"step: losses {lm_} vs {lp}, {same}/"
+                             f"{len(leaves)} parameter leaves equal")
+    out.update(plain_ms=tp, mesh_ms=tm, losses=lp,
+               dispatch_ms=tm[-1] - tp[-1])
+    log(f"phase 15 (a) {LM_ARCH} on the 1 x 1 DTensor mesh (NCCL, world "
+        f"1; {' x '.join(map(str, data['tokens'].shape))} tokens, AdamW, "
+        f"remat) against the "
+        f"plain step, {MESH_STEPS} steps from the same weights and batch: "
+        f"losses {lm_} (plain {lp}), {same}/{len(leaves)} parameter and "
+        f"{same_s}/{len(states)} optimizer-state leaves bit for bit; host "
+        f"ms a step, plain {[round(x, 3) for x in tp]}, mesh "
+        f"{[round(x, 3) for x in tm]}; DTensor dispatch adds "
+        f"{out['dispatch_ms']:.3f} ms to step {MESH_STEPS}; "
+        f"{TRAIN_FLASH} flash launches a step through "
+        f"torch.ops.repro_torch.flash_attention")
+    del pp, sp, runs, leaves, states
+
+    # (c) the roofline counters over one real mesh step
+    b, seq = data["tokens"].shape
+    tokens = b * seq
+    info = dryrun.SHAPES["train_4k"]
+    mflops = dryrun.model_flops(cfg, "train_4k") * tokens / (
+        info["batch"] * info["seq"])
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with analysis.CostMode() as cost:
+        pm, sm, _ = step(pm, sm, mdata)
+        torch.cuda.synchronize()
+    counted_ms = (time.perf_counter() - t0) * 1e3
+    if fa.flash_attention.launches != TRAIN_FLASH:
+        raise AssertionError(f"phase 15 (c): {fa.flash_attention.launches} "
+                             f"flash launches")
+    launches += TRAIN_FLASH
+    roof = analysis.from_counts(cost, 1, mflops)
+    flash_flops = cost.by_op.get("repro_torch.flash_attention", 0)
+    want_flash = TRAIN_FLASH * fa.flops((b, seq, cfg.n_heads, cfg.hd),
+                                        (b, seq, cfg.kv_heads, cfg.hd),
+                                        True, 0)
+    if not roof.flops >= mflops or flash_flops != want_flash:
+        raise AssertionError(f"phase 15 (c): counted {roof.flops:.4g} FLOPs "
+                             f"against 6 N T {mflops:.4g}; flash "
+                             f"{flash_flops} against {want_flash}")
+    bound = max(roof.t_compute, roof.t_memory) * 1e3
+    out.update(flops=roof.flops, mflops=mflops, t_compute=roof.t_compute,
+               t_memory=roof.t_memory, counted_ms=counted_ms)
+    top = sorted(cost.by_op.items(), key=lambda kv: -kv[1])[:4]
+    log(f"phase 15 (c) roofline.analysis over one mesh step: "
+        f"{roof.flops / 1e12:.3f} TFLOP counted (6 N T = {mflops / 1e12:.3f}"
+        f"; {', '.join(f'{k} {v / 1e12:.3f}' for k, v in top)}), flash "
+        f"{flash_flops / 1e12:.4f} TFLOP = {TRAIN_FLASH} x its formula; "
+        f"{roof.hbm_bytes / 1e12:.3f} TB moved; t_compute "
+        f"{roof.t_compute * 1e3:.3f} ms, t_memory {roof.t_memory * 1e3:.3f} "
+        f"ms at 989 TFLOP/s and 3.35 TB/s; measured {tp[-1]:.3f} ms a "
+        f"plain step, {tm[-1]:.3f} a mesh step, against max(t_compute, "
+        f"t_memory) {bound:.3f} ms ({tp[-1] / bound:.2f}x); the counted "
+        f"step took {counted_ms:.1f} ms")
+    del pm, sm, mdata, params0, state0, data, p, s
+    mesh_lib.stop_group()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def mesh_launcher():
+    """(a'): ``launch.train --mesh debug`` at full width: it starts its own
+    NCCL group, checkpoints DTensors, and stops the group."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+
+    directory = ROOT / "build" / "phase15"
+    shutil.rmtree(directory, ignore_errors=True)
+    buf = io.StringIO()
+    fa.flash_attention.launches = 0
+    try:
+        with contextlib.redirect_stdout(buf):
+            train.main(MESH_ARGV + ["--ckpt-dir", str(directory)])
+        if not (directory / "step_00000002" / "manifest.json").exists():
+            raise AssertionError("launch.train --mesh debug wrote no step-2 "
+                                 "checkpoint")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    n = fa.flash_attention.launches
+    last = buf.getvalue().strip().splitlines()[-1]
+    if not MESH_LINE.match(last) or n != 2 * TRAIN_FLASH:
+        raise AssertionError(f"launch.train {' '.join(MESH_ARGV)}: last line"
+                             f" {last!r}, {n} flash launches")
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise AssertionError("launch.train left its process group")
+    log(f"phase 15 (a') python -m repro_torch.launch.train "
+        f"{' '.join(MESH_ARGV)}: {last!r}, {n} flash launches")
+    torch.cuda.empty_cache()
+    return n
+
+
+def mesh_dryrun(dev, counters):
+    """(b): the dry-run's two LM cells under the fake group at world 512,
+    and its --pic row for real on the card; returns the rows."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.roofline import report
+
+    rows = []
+    mesh_lib.start_group("fake", dryrun.FAKE_WORLD)
+    try:
+        meshes = {}
+        for shape, multi, name in DRYRUN_CELLS:
+            meshes[name] = mesh_lib.make_production_mesh(
+                multi_pod=multi, device=dryrun.trace_device())
+            row = dryrun.run_cell(LM_ARCH, shape, meshes[name], name)
+            if row["status"] != "ok":
+                raise AssertionError(f"phase 15 (b) {LM_ARCH} x {shape} on "
+                                     f"{name}: {row.get('error')}\n"
+                                     f"{row.get('trace')}")
+            ro = row["roofline"]
+            if not ro["useful_flops_ratio"] <= 1:
+                raise AssertionError(f"phase 15 (b) {shape}: useful flops "
+                                     f"ratio {ro['useful_flops_ratio']}")
+            rows.append(row)
+            log(f"phase 15 (b) dry-run {LM_ARCH} x {shape} on {name}: "
+                f"{row['status']}, traced in {row['lower_s']} s; t_compute "
+                f"{ro['t_compute_s']:.4g} s, t_memory {ro['t_memory_s']:.4g} "
+                f"s, t_collective {ro['t_collective_s']:.4g} s "
+                f"({ro['bottleneck']}); {ro['hlo_gflops_per_chip']:.1f} "
+                f"GFLOP, {ro['hbm_gbytes_per_chip']:.2f} GB, collectives "
+                f"{ro['coll_breakdown']} a chip; useful flops ratio "
+                f"{ro['useful_flops_ratio']:.4f}; "
+                f"{row['bytes_per_chip_est'] / 2**30:.2f} GiB a chip, "
+                f"fits_80g {row['fits_80g']}")
+        reset_launches(counters)
+        pic = dryrun.run_pic_dryrun(meshes["pod16x16"], "pod16x16", dev)
+        n = launches(counters)
+        if n["fused_push_deposit"] <= 0 and n["mover_push"] <= 0:
+            raise AssertionError(f"phase 15 (b) --pic: no push kernel ran "
+                                 f"({n})")
+        ro = pic["roofline"]
+        log(f"phase 15 (b) dry-run --pic on pod16x16 (D "
+            f"{pic['domains']}, one real engine step at §3.3 global size on "
+            f"the card, {pic['step_s']} s): t_memory {ro['t_memory_s']:.4g} "
+            f"s, t_collective {ro['t_collective_s']:.4g} s a domain "
+            f"({ro['bottleneck']}); {ro['hbm_gbytes_per_chip']:.3f} GB and "
+            f"{ro['coll_mbytes_per_chip']:.3f} MB moved a domain; peak "
+            f"{pic['memory']['peak_bytes'] / 2**30:.2f} GiB for the D "
+            f"domains; kernel launches {n}")
+        rows.append(pic)
+    finally:
+        mesh_lib.stop_group()
+    for line in report.render_rows(rows).splitlines():
+        log(f"  {line}")
+    return rows, n
+
+
+def mesh_phase(dev):
+    """Phase 15. Returns (launches by kernel, numbers)."""
+    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+
+    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
+                "mover_push": mover.mover_push, "deposit": deposit.deposit,
+                "ta_kick": collide.ta_kick}
+    t0 = time.perf_counter()
+    marks = [t0]
+    flash, nums = mesh_train(dev)
+    marks.append(time.perf_counter())
+    flash += mesh_launcher()
+    marks.append(time.perf_counter())
+    nums["rows"], pic = mesh_dryrun(dev, counters)
+    marks.append(time.perf_counter())
+    counts = {k: pic[k] for k in PIC_KERNELS}
+    counts["flash_attention"] = flash
+    nums["seconds"] = marks[-1] - t0
+    nums["part_s"] = [round(b - a, 1) for a, b in zip(marks, marks[1:])]
+    log(f"phase 15: {nums['seconds']:.1f} s ((a, c), (a'), (b): "
+        f"{nums['part_s']} s), launches {counts}")
+    return counts, nums
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -4121,6 +4407,10 @@ def main() -> int:
     counts["flash_attention"], fam = family_phase(dev)
     train_launches, trn = train_phase(dev)
     counts["flash_attention"] += train_launches
+    mesh_counts, msh = mesh_phase(dev)
+    for k in counts:
+        if k in mesh_counts:
+            counts[k] += mesh_counts[k]
 
     log("kernels: " + "; ".join(
         f"{k} launches={counts[k]} max_abs_err={kernels[k]['max_abs_err']:.3g}"
@@ -4173,6 +4463,16 @@ def main() -> int:
                     for a, r in trn["card_vs_cpu"].items())
         + f"; phase 14 {trn['seconds']:.1f} s ((a-c), (d), (e), (f), (g): "
         f"{trn['part_s']} s)")
+    log(f"LM train on the 1 x 1 DTensor mesh: plain ms "
+        f"{[round(x, 3) for x in msh['plain_ms']]}, mesh ms "
+        f"{[round(x, 3) for x in msh['mesh_ms']]} (DTensor dispatch adds "
+        f"{msh['dispatch_ms']:.3f} ms at step {MESH_STEPS}); counted "
+        f"{msh['flops'] / 1e12:.3f} TFLOP against 6 N T "
+        f"{msh['mflops'] / 1e12:.3f}; t_compute {msh['t_compute'] * 1e3:.3f}"
+        f" ms, t_memory {msh['t_memory'] * 1e3:.3f} ms; dry-run rows "
+        + ", ".join(f"{r['arch']} {r['shape']} {r['mesh']} {r['status']}"
+                    for r in msh["rows"])
+        + f"; phase 15 {msh['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     rows = []

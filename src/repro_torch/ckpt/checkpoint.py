@@ -18,6 +18,12 @@ is an empty subtree. A leaf is a tensor, a numpy array or a Python number.
 Dtypes npz cannot hold (bfloat16 and the like) are stored as float32 with
 the true dtype in the manifest; float32 holds every bfloat16 exactly, so
 the cast back is bitwise.
+
+A DTensor leaf (a training state on a mesh) is saved as its full tensor
+(``full_tensor()``, then host numpy: the reference's mesh-agnostic
+layout) and restored with the target's placements: a
+``sharding.rules.NamedSharding`` in ``shardings``, else its ``like``
+leaf's mesh and placements.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import NamedSharding, is_dtensor, place
 
 SEP = "/"
 
@@ -108,6 +115,8 @@ def _storable(leaf: Any) -> tuple[np.ndarray, str | None]:
     """A host copy of ``leaf`` npz can hold, and its true dtype where that
     is not the copy's (stored as float32)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if _numpy_dtype(t.dtype) is None:
             return t.float().numpy(), str(t.dtype).removeprefix("torch.")
@@ -205,6 +214,9 @@ def _unflatten_like(flat: dict[str, np.ndarray], like: Any,
                 f"{ref_shape} — device/capacity layout changed; use the "
                 "elastic restore path (runtime/resilience.py)")
         dtype = getattr(ref, "dtype", None)
+        if is_dtensor(ref):
+            return _placed(_tensor(arr, dtype, ref.device), ref.device_mesh,
+                           ref.placements)
         if isinstance(ref, torch.Tensor):
             return _tensor(arr, dtype, ref.device)
         want = _numpy_dtype(dtype) if dtype is not None else None
@@ -303,9 +315,9 @@ class Checkpointer:
 
     def restore(self, step: int | None = None, shardings: Any = None,
                 like: Any = None, device=None) -> tuple[int, Any]:
-        """Load a checkpoint as tensors. Each leaf lands on its device in
-        ``shardings`` (the same tree structure, a ``torch.device`` a leaf)
-        if given, else on the device of its ``like`` leaf where that is a
+        """Load a checkpoint as tensors. Each leaf lands on its target in
+        ``shardings`` (the same tree structure, a ``torch.device`` or a
+        ``NamedSharding`` a leaf) if given, else on the device of its ``like`` leaf where that is a
         tensor, else on ``device`` (default ``"cuda"``, which raises when
         no card is present). ``like`` (a tree of tensors or arrays, e.g.
         ``engine.state_shape``) rebuilds the exact stored structure and
@@ -332,8 +344,15 @@ def tensors_from_flat(flat: dict[str, np.ndarray], dtypes: dict[str, str],
 
     def to_tensor(path, leaf):
         dev = devices.get(_path_str(path))
+        if isinstance(dev, NamedSharding):
+            if not isinstance(leaf, torch.Tensor):
+                leaf = _tensor(leaf, dtypes.get(_path_str(path)),
+                               dev.mesh.device_type)
+            return place(leaf, dev.mesh, dev.spec)
         if isinstance(leaf, torch.Tensor):    # built on its like leaf's
-            return leaf.to(dev) if dev is not None else leaf
+            if dev is None:
+                return leaf
+            return (leaf.full_tensor() if is_dtensor(leaf) else leaf).to(dev)
         if dev is None:
             if not default:
                 default.append(resolve_device(
@@ -344,9 +363,16 @@ def tensors_from_flat(flat: dict[str, np.ndarray], dtypes: dict[str, str],
     return _rebuild(tree, to_tensor)
 
 
-def _leaves_devices(tree: Any) -> Iterator[tuple[tuple, torch.device]]:
-    """(path, device) of a tree whose leaves are devices."""
-    if isinstance(tree, torch.device):
+def _placed(t: torch.Tensor, mesh, placements) -> torch.Tensor:
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def _leaves_devices(tree: Any) -> Iterator[tuple[tuple, Any]]:
+    """(path, target) of a tree whose leaves are devices or
+    ``NamedSharding``s."""
+    if isinstance(tree, (torch.device, NamedSharding)):
         yield (), tree
         return
     for name, child in _children(tree):

@@ -42,6 +42,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -190,3 +191,75 @@ def kernel_attributes(d: int, dtype: torch.dtype) -> dict[str, int]:
                         "flash_attention_attributes")
     return dict(zip(("registers", "local_bytes", "static_smem",
                      "dynamic_smem"), out))
+
+
+# ------------------------------------------------------ registered operator
+# ``repro_torch::flash_attention`` is the kernel as a PyTorch operator, so
+# that a DTensor, a fake tensor and the FLOP counter can meet it: its CUDA
+# implementation is ``flash_attention`` above (the kernel, counting its
+# launches), its CPU implementation ``flash_attention_plain``, its fake one
+# an empty tensor like q. A tensor on any other device finds no
+# implementation and raises.
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int) -> torch.Tensor:
+    """The kernel: q (B, Sq, H, D) against k, v (B, Skv, KVH, D)."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_kernel("cpu")
+def _flash_attention_cpu(q, k, v, causal, window):
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window):
+    _shapes(q, k, v)
+    return torch.empty_like(q)
+
+
+def unmasked_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs of one head that the mask lets through: key j
+    is seen by query i when j < Skv, j <= i (causal) and j > i - window
+    (window > 0)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flops(q_shape, k_shape, causal: bool, window: int) -> int:
+    """4 * D FLOPs an unmasked pair (q.k and p.v, a multiply and an add
+    each), the count of the bound in ``PERF.md``; masked tiles, which the
+    kernel skips, count nothing."""
+    b, sq, h, d = q_shape
+    return 4 * d * b * h * unmasked_pairs(sq, k_shape[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                           out_shape=None, **kwargs) -> int:
+    return flops(q_shape, k_shape, causal, window)
+
+
+def _register_sharding() -> None:
+    """DTensor's rule for the operator: q, k and v replicated, or sharded
+    alike on the batch, or on the heads where every device gets whole GQA
+    groups (H and KVH both divide by the mesh's size); the output takes
+    q's placement."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _rule(q, k, v, causal, window):
+        rules = [([Replicate()], [Replicate()] * 3 + [None, None]),
+                 ([Shard(0)], [Shard(0)] * 3 + [None, None])]
+        n = q.mesh.size()
+        if q.shape[2] % n == 0 and k.shape[2] % n == 0:
+            rules.append(([Shard(2)], [Shard(2)] * 3 + [None, None]))
+        return rules
+
+
+if torch.distributed.is_available():
+    _register_sharding()

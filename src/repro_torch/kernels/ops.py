@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.kernels import collide as _collide
 from repro_torch.kernels import deposit as _deposit
-from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention as _flash  # noqa: F401 (registers repro_torch::flash_attention)
 from repro_torch.kernels import fused_cycle as _fused
 from repro_torch.kernels import mover as _mover
 
@@ -83,9 +83,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Masked online-softmax attention, the function of the reference's
     ``chunked_attention``: q (B, Sq, H, D) against k, v (B, Skv, KVH, D),
     H a multiple of KVH; or the reference kernel's head-folded signature,
-    q (bh, sq, hd) against k, v (bh, skv, hd). Returns q's shape and dtype."""
-    fn = _flash.flash_attention if _on_card(q) else _flash.flash_attention_plain
+    q (bh, sq, hd) against k, v (bh, skv, hd). Returns q's shape and dtype.
+
+    The call goes through the registered operator
+    ``torch.ops.repro_torch.flash_attention``, which a DTensor (by its
+    sharding rule) and a fake tensor (by its fake implementation) can enter
+    too; a CUDA tensor reaches the kernel, a CPU tensor its plain version."""
+    _on_card(q)
+    fn = torch.ops.repro_torch.flash_attention
     if q.dim() == 3:
-        return fn(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2),
-                  causal=causal, window=window).squeeze(2)
-    return fn(q, k, v, causal=causal, window=window)
+        return fn(q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), causal,
+                  window).squeeze(2)
+    return fn(q, k, v, causal, window)

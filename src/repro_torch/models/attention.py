@@ -26,9 +26,9 @@ the cache. The KV cache layout is (b, s_max, kv_heads, hd).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.rules import from_local, is_dtensor
 
 NEG_INF = -1e30
 
@@ -38,6 +38,16 @@ def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
     if groups == 1:
         return x
     return torch.repeat_interleave(x, groups, dim=2)
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (b, s, h, d) with n zero rows appended along s, by concatenation:
+    DTensor's ``constant_pad_nd`` rule (torch 2.11) gives a 2-D mesh one
+    placement, which the next view refuses."""
+    if n == 0:
+        return x
+    return torch.cat([x, torch.zeros_like(x[:, :1]).expand(-1, n, -1, -1)],
+                     dim=1)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,9 +74,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dev = q.device
     nq, nk = -(-sq // q_chunk), -(-skv // kv_chunk)
 
-    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_chunk - sq))
-    kp = F.pad(k, (0, 0, 0, 0, 0, nk * kv_chunk - skv))
-    vp = F.pad(v, (0, 0, 0, 0, 0, nk * kv_chunk - skv))
+    qp = _pad_rows(q, nq * q_chunk - sq)
+    kp = _pad_rows(k, nk * kv_chunk - skv)
+    vp = _pad_rows(v, nk * kv_chunk - skv)
     # the scale rounded to q's dtype first, as a weakly typed constant is
     scale = torch.tensor(hd ** -0.5, dtype=q.dtype, device=dev)
     qs = qp.reshape(b, nq, q_chunk, kvh, grp, hd) * scale
@@ -109,7 +119,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class _Attention(torch.autograd.Function):
     """Forward: the flash kernel. Backward: the gradient of
-    ``chunked_attention`` on the saved q, k, v."""
+    ``chunked_attention`` on the saved q, k, v (on a mesh, on each rank's
+    shards)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
@@ -120,14 +131,83 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         need = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(n)
-                   for t, n in zip(ctx.saved_tensors, need)]
-            out = chunked_attention(*ins, causal=ctx.causal,
-                                    window=ctx.window)
-            grads = iter(torch.autograd.grad(
-                out, [t for t, n in zip(ins, need) if n], grad_out))
-        return (*(next(grads) if n else None for n in need), None, None)
+        saved = ctx.saved_tensors
+        if is_dtensor(grad_out):
+            return (*_local_backward(ctx, saved, grad_out, need), None, None)
+        return (*_backward(ctx, saved, grad_out, need), None, None)
+
+
+def _backward(ctx, saved, grad_out, need):
+    """The gradient of ``chunked_attention`` at the saved q, k, v."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = chunked_attention(*ins, causal=ctx.causal, window=ctx.window)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, n in zip(ins, need) if n], grad_out))
+    return tuple(next(grads) if n else None for n in need)
+
+
+def _local_backward(ctx, saved, grad_out, need):
+    """The backward on a mesh, shard by shard: attention is independent
+    over the batch and over whole GQA groups of heads, so q, k, v and the
+    output's gradient are placed alike (the flash operator's rule: each
+    mesh dim keeps a batch shard, or a head shard where H and KVH divide
+    by the mesh, and replicates otherwise) and ``_backward`` runs on each
+    rank's local tensors. DTensor's op-by-op rules are not entered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    q, k = saved[0], saved[1]
+    mesh = q.device_mesh
+    heads = q.shape[2] % mesh.size() == 0 and k.shape[2] % mesh.size() == 0
+    pl = tuple(p if isinstance(p, Shard) and (p.dim == 0 or (
+        p.dim == 2 and heads)) else Replicate() for p in q.placements)
+    loc = [t.redistribute(mesh, pl).to_local() for t in (*saved, grad_out)]
+    grads = _backward(ctx, loc[:3], loc[3], need)
+    return tuple(None if g is None else from_local(g, mesh, pl, t.shape)
+                 for g, t in zip(grads, saved))
+
+
+def _row_offset(x, dim: int) -> int:
+    """The global index of this rank's first element along ``dim`` of a
+    DTensor: each mesh dim that shards ``dim`` splits the piece before it
+    as ``torch.chunk`` does, in mesh order."""
+    from torch.distributed.tensor import Shard
+
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    size, off = x.shape[dim], 0
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-size // mesh.size(i))
+            start = min(coord[i] * chunk, size)
+            off, size = off + start, max(0, min(chunk, size - start))
+    return off
+
+
+def sharded_chunked_attention(q, k, v, **kw) -> torch.Tensor:
+    """``chunked_attention``; on a mesh, run on each rank's shards. q keeps
+    its batch, row (sequence-parallel attention) and whole-GQA-group head
+    shards, k and v the same batch and head shards and every key; each
+    rank attends its rows at their global offset (``q_offset``), and the
+    partial key gradients of a row-sharded q are summed by DTensor."""
+    if not is_dtensor(q):
+        return chunked_attention(q, k, v, **kw)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    heads = q.shape[2] % mesh.size() == 0 and k.shape[2] % mesh.size() == 0
+    qpl = tuple(p if isinstance(p, Shard) and (p.dim in (0, 1) or (
+        p.dim == 2 and heads)) else Replicate() for p in q.placements)
+    kvpl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                 for p in qpl)
+    grads = [Partial() if isinstance(p, Shard) and p.dim == 1 else kp
+             for p, kp in zip(qpl, kvpl)]
+    q = q.redistribute(mesh, qpl)
+    k, v = (t.redistribute(mesh, kvpl).to_local(grad_placements=grads)
+            for t in (k, v))
+    out = chunked_attention(q.to_local(), k, v,
+                            q_offset=kw.pop("q_offset", 0)
+                            + _row_offset(q, 1), **kw)
+    return from_local(out, mesh, qpl, q.shape)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -3,14 +3,18 @@
 
 The reference stacks per-layer parameters along a leading ``L`` axis and
 scans over it; the port keeps the stacked dict and runs a Python loop over
-layers. ``constrain`` is not ported: it is a no-op without a mesh, and a
-config that names a tensor-parallel axis raises (tensor parallelism comes
-with the training slice).
+layers. On a mesh the parameters are DTensors (``sharding.rules``):
+``constrain`` redistributes an activation to the reference's sharding
+constraint when ``cfg.tp_axis`` is set, and ``mesh_ops`` lets the plain
+tensors a forward makes (positions, masks, constants) meet DTensors as
+replicated ones.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -18,9 +22,6 @@ import torch
 
 # the model kinds the port runs: every kind of the reference
 KINDS = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
-# the option the port does not run yet: ROADMAP queue 1, item 6
-NOT_PORTED = ("not ported yet (ROADMAP queue 1, item 6: the training "
-              "slice, with sharding)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,18 +64,13 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
     # --- performance knobs of the reference (defaults = faithful
-    #     baseline); tp_axis needs a mesh, which the port does not have ---
+    #     baseline); tp_axis and dp_axes name axes of the DeviceMesh ---
     tp_axis: str | None = None
     tp_size: int = 0
     dp_axes: tuple[str, ...] = ()
     moe_group: int = 0
     attn_p_bf16: bool = False  # cast softmax probs to bf16 for the PV matmul
     attn_dp_only: bool = False
-
-    def __post_init__(self):
-        if self.tp_axis is not None:
-            raise NotImplementedError(f"tp_axis={self.tp_axis!r}: tensor "
-                                      f"parallelism is {NOT_PORTED}")
 
     @property
     def hd(self) -> int:
@@ -215,3 +211,105 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def act_fn(name: str):
     return {"swiglu": silu, "geglu": gelu, "gelu": gelu, "silu": silu}[name]
+
+
+# -------------------------------------------------------------------- mesh
+_mesh_depth = 0
+
+
+@contextlib.contextmanager
+def mesh_ops():
+    """Within: a plain tensor that meets a DTensor counts as replicated on
+    its mesh (``implicit_replication``), so the positions, masks and
+    constants a forward or an update makes need no placement. Re-entrant;
+    nothing changes for plain tensors."""
+    global _mesh_depth
+    if _mesh_depth or not torch.distributed.is_available():
+        _mesh_depth += 1
+        try:
+            yield
+        finally:
+            _mesh_depth -= 1
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    _mesh_depth += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _mesh_depth -= 1
+
+
+def on_mesh(fn):
+    """``fn`` run within ``mesh_ops``: an entry point whose tensors may be
+    DTensors."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with mesh_ops():
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def constrain(x: torch.Tensor, cfg, spec: tuple) -> torch.Tensor:
+    """The reference's sharding constraint: with ``cfg.tp_axis`` set and x
+    a DTensor, x redistributed to ``spec`` (entries None, 'tp' for
+    ``cfg.tp_axis``, 'dp' for ``cfg.dp_axes``); x itself otherwise, as the
+    reference's is a no-op when ``tp_axis`` is None. An axis that does not
+    divide its dim is dropped (``enforce_divisible``): the einsums that
+    follow fold the dim into a view, which DTensor refuses on an uneven
+    shard, where GSPMD pads."""
+    if cfg.tp_axis is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding import rules
+
+    entries = []
+    for e in spec:
+        if e == "tp":
+            entries.append(cfg.tp_axis)
+        elif e == "dp":
+            entries.append(tuple(cfg.dp_axes) if cfg.dp_axes else None)
+        else:
+            entries.append(e)
+    mesh = x.device_mesh
+    spec = rules.enforce_divisible(rules.Spec(*entries), tuple(x.shape), mesh)
+    return x.redistribute(mesh, rules.placements(spec, mesh))
+
+
+def reshape(x: torch.Tensor, *shape) -> torch.Tensor:
+    """``x.reshape(*shape)``. A DTensor whose sharded dims the reshape
+    cannot split or merge evenly (14 heads over a 16-way axis) is first
+    replicated on them, keeping its batch dim 0 as it is: DTensor refuses
+    such a view, where GSPMD pads. Its gradient is reshaped back the same
+    way."""
+    from repro_torch.sharding.rules import is_dtensor
+
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    return _Reshape.apply(x, shape)
+
+
+def _reshape_dtensor(x, shape):
+    try:
+        return x.reshape(shape)
+    except RuntimeError:
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = [Replicate() if isinstance(p, Shard) and p.dim != 0 else p
+              for p in x.placements]
+        return x.redistribute(x.device_mesh, pl).reshape(shape)
+
+
+class _Reshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = x.shape
+        return _reshape_dtensor(x, shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reshape_dtensor(grad, ctx.shape), None

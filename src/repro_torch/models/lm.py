@@ -39,12 +39,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2, rglru
 from repro_torch.models.attention import (attention, decode_attention,
+                                          sharded_chunked_attention,
                                           update_cache)
-from repro_torch.models.common import (ModelConfig, dense_init, gelu,
-                                       rms_norm, rope, silu,
-                                       sinusoidal_positions)
+from repro_torch.models.common import (ModelConfig, constrain, dense_init,
+                                       gelu, on_mesh, reshape, rms_norm,
+                                       rope, silu, sinusoidal_positions)
 from repro_torch.models.ffn import gated_ffn
 from repro_torch.models.moe import moe_ffn
+from repro_torch.sharding.rules import (gather_rows, pin_activation,
+                                       replicate_dims)
 
 
 # ===================================================================== init
@@ -192,7 +195,7 @@ def _hybrid_params(params: dict, key: str) -> dict:
 
 
 def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor):
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = gather_rows(params["embed"], tokens).to(cfg.dtype)
     if cfg.arch.startswith("gemma") or cfg.arch.startswith("recurrentgemma"):
         # the scale is rounded to the config dtype first, as jnp.asarray does
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
@@ -208,25 +211,47 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
     v = torch.matmul(xn, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, s, cfg.n_heads, cfg.hd),
-            k.reshape(b, s, cfg.kv_heads, cfg.hd),
-            v.reshape(b, s, cfg.kv_heads, cfg.hd))
+    return (reshape(q, b, s, cfg.n_heads, cfg.hd),
+            reshape(k, b, s, cfg.kv_heads, cfg.hd),
+            reshape(v, b, s, cfg.kv_heads, cfg.hd))
 
 
 # ================================================================== forward
 def _attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor, *, window: int = 0,
                 causal: bool = True) -> torch.Tensor:
-    if cfg.attn_p_bf16:
-        raise NotImplementedError("attn_p_bf16: the flash kernel keeps p in "
-                                  "f32 for the PV product")
+    x = pin_activation(x)
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = attention(q, k, v, causal=causal, window=window)
-    out = out.reshape(b, s, cfg.n_heads * cfg.hd)
+    # the reference's constraints (no-ops unless cfg.tp_axis is set and the
+    # tensors are DTensors): q rows over tp (sequence-parallel attention),
+    # or attention data-parallel only
+    if cfg.attn_dp_only:
+        spec = ("dp", None, None, None)
+        q, k, v = (constrain(t, cfg, spec) for t in (q, k, v))
+    else:
+        q = constrain(q, cfg, ("dp", "tp", None, None))
+        k = constrain(k, cfg, ("dp", None, None, None))
+        v = constrain(v, cfg, ("dp", None, None, None))
+    if cfg.attn_p_bf16:
+        # bf16 probabilities for P V: the reference's own path (the flash
+        # kernel keeps p in f32); a q chunk no larger than a tp shard's rows
+        q_chunk = 512
+        if cfg.tp_size:
+            q_chunk = max(128, min(512, s // cfg.tp_size))
+        out = sharded_chunked_attention(q, k, v, causal=causal,
+                                        window=window, p_bf16=True,
+                                        q_chunk=q_chunk)
+    else:
+        out = attention(q, k, v, causal=causal, window=window)
+    out = reshape(out, b, s, cfg.n_heads * cfg.hd)
+    out = constrain(out, cfg, ("dp", "tp", None))
+    # DTensor's matmul cannot fold rows sharded under a batch shard into
+    # its 2-D product: a row-sharded output is gathered first
+    out = replicate_dims(out, (1,))
     return x + torch.matmul(out, p["wo"])
 
 
@@ -245,7 +270,7 @@ def _attn_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: int,
     cache_len = torch.full((b,), pos, dtype=torch.int32, device=x.device)
     out = decode_attention(q, kc, vc, cache_len, window=window,
                            p_bf16=cfg.attn_p_bf16)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
+    out = reshape(out, b, 1, cfg.n_heads * cfg.hd)
     return x + torch.matmul(out, p["wo"])
 
 
@@ -253,6 +278,7 @@ def _ffn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The FFN block: the gated FFN, or the MoE when ``p`` has a router.
     Returns (x + out, the MoE aux loss or 0 in f32)."""
+    x = pin_activation(x)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     if "w_router" in p:
         out, aux = moe_ffn(xn, p["w_router"], p["w_gate"], p["w_up"],
@@ -269,6 +295,7 @@ def _ffn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor
 def _ssm_in(cfg: ModelConfig, p: dict, x: torch.Tensor, conv_state=None):
     """The SSM block up to the scan: (z, xh (b, s, h, p), B, C, dt f32,
     new conv state or None)."""
+    x = pin_activation(x)
     b, s, d = x.shape
     d_in = cfg.ssm_expand * d
     nst, nh = cfg.ssm_state, d_in // cfg.ssm_head_dim
@@ -284,14 +311,14 @@ def _ssm_in(cfg: ModelConfig, p: dict, x: torch.Tensor, conv_state=None):
                                                  conv_state)
     xc, bmat, cmat = torch.split(silu(conv_out), [d_in, nst, nst], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
-    return (z, xc.reshape(b, s, nh, cfg.ssm_head_dim), bmat, cmat, dt,
+    return (z, reshape(xc, b, s, nh, cfg.ssm_head_dim), bmat, cmat, dt,
             conv_state)
 
 
 def _ssm_out(cfg: ModelConfig, p: dict, x, z, xh, y):
     b, s, d = x.shape
     y = y + p["d_skip"][None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(b, s, cfg.ssm_expand * d).to(x.dtype)
+    y = reshape(y, b, s, cfg.ssm_expand * d).to(x.dtype)
     y = rms_norm(y * silu(z), p["gate_norm"], cfg.norm_eps)
     return x + torch.matmul(y, p["out_proj"])
 
@@ -315,6 +342,7 @@ def _rg_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
               h0: torch.Tensor | None = None,
               conv_state: torch.Tensor | None = None, decode: bool = False):
     """The Griffin recurrent block; returns (x, h_last, conv state)."""
+    x = pin_activation(x)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     branch = torch.matmul(xn, p["w_x"])
     gate_branch = gelu(torch.matmul(xn, p["w_gate_branch"]))
@@ -326,6 +354,7 @@ def _rg_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return x + torch.matmul(y * gate_branch, p["w_out"]), h, conv_state
 
 
+@on_mesh
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None,
             remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
@@ -340,6 +369,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
+    x = pin_activation(x)
     b, s, d = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
@@ -388,7 +418,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x = group(x, tail)
     else:
         raise ValueError(cfg.kind)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(pin_activation(x), params["final_norm"], cfg.norm_eps)
     return x, aux_total
 
 
@@ -454,6 +484,7 @@ def _sinusoid_row(pos: int, d: int, device) -> torch.Tensor:
     return row
 
 
+@on_mesh
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 cache: dict, pos: int) -> tuple[torch.Tensor, dict]:
     """token: (b, 1) integer; pos: the cache write position (int). The

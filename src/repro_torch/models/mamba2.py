@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.common import reshape
+
 CONV_W = 4
 
 
@@ -53,10 +55,10 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     dta = dt.to(f32) * a                                     # (b, s, h)
     xbar = xh.to(f32) * dt.to(f32)[..., None]
 
-    dta_c = dta.reshape(bsz, nc, q, nh)
-    x_c = xbar.reshape(bsz, nc, q, nh, p)
-    b_c = b_mat.to(f32).reshape(bsz, nc, q, n)
-    c_c = c_mat.to(f32).reshape(bsz, nc, q, n)
+    dta_c = reshape(dta, bsz, nc, q, nh)
+    x_c = reshape(xbar, bsz, nc, q, nh, p)
+    b_c = reshape(b_mat.to(f32), bsz, nc, q, n)
+    c_c = reshape(c_mat.to(f32), bsz, nc, q, n)
 
     cum = torch.cumsum(dta_c, dim=2)                         # (b, nc, q, h)
     total = cum[:, :, -1:, :]                                # (b, nc, 1, h)
@@ -88,7 +90,7 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     w_in = torch.exp(cum)                                    # (b, nc, q, h)
     y_inter = torch.einsum("bcqn,bchnp->bcqhp", c_c, h_in) * w_in[..., None]
 
-    y = (y_intra + y_inter).reshape(bsz, s, nh, p)
+    y = reshape(y_intra + y_inter, bsz, s, nh, p)
     return y, h
 
 

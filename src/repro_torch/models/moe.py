@@ -26,7 +26,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import act_fn
+from repro_torch.models.common import act_fn, constrain, reshape
+from repro_torch.sharding.rules import batch_only, replicate_dims
 
 
 def route_topk(logits: torch.Tensor, k: int
@@ -71,7 +72,7 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     g0, s0, d = x.shape
     if cfg is not None and cfg.moe_group and s0 > cfg.moe_group \
             and s0 % cfg.moe_group == 0:
-        x = x.reshape(g0 * (s0 // cfg.moe_group), cfg.moe_group, d)
+        x = reshape(x, g0 * (s0 // cfg.moe_group), cfg.moe_group, d)
     g, s, _ = x.shape
     e = w_router.shape[-1]
     f32 = torch.float32
@@ -88,23 +89,40 @@ def moe_ffn(x: torch.Tensor, w_router: torch.Tensor, w_gate: torch.Tensor,
     cap = capacity(s, top_k, e, capacity_factor)
     pos, keep = dispatch_plan(idx, e, cap)
     # a dropped route's slot is C, one past the last: its one-hot row is 0
-    slot = torch.where(keep, pos, cap).long()[..., None]
-    pos_oh = torch.zeros(g, s, top_k, cap + 1, dtype=x.dtype,
-                         device=x.device).scatter_(-1, slot, 1.0)[..., :cap]
+    slot = torch.where(keep, pos, cap)[..., None]
+    pos_oh = (slot == torch.arange(cap, device=x.device)).to(x.dtype)
     disp = oh.to(x.dtype) * keep[..., None].to(x.dtype)
     # (g, s, E, C) = sum_k onehot_E * onehot_C (* the route's weight)
     dispatch = torch.einsum("gske,gskc->gsec", disp, pos_oh)
     combine = torch.einsum("gske,gskc->gsec",
                            disp * weights.to(x.dtype)[..., None], pos_oh)
 
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)  # (E, g, C, d)
+    # on a mesh, the products start from group-sharded operands: DTensor
+    # cannot fold an unevenly sharded (E, C) into the einsums' views
+    dispatch, combine, x = (batch_only(t) for t in (dispatch, combine, x))
+    tp = cfg is not None and cfg.tp_axis
+    if tp:
+        dispatch = constrain(dispatch, cfg, ("dp", None, "tp", None))
+        combine = constrain(combine, cfg, ("dp", None, "tp", None))
+
+    # (E, g, C, d): the EP all-to-all happens here when E is model-sharded
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
+    if tp:
+        # decode keeps d over the FSDP axis (partial sums, not gathered
+        # expert weights), as the reference does
+        expert_in = constrain(expert_in, cfg, ("tp", None, None, "dp")
+                              if s0 == 1 else ("tp", "dp", None, None))
+    expert_in = replicate_dims(expert_in, (1, 2, 3))
     f = act_fn(act)
-    ein = expert_in.reshape(e, g * cap, d)
+    ein = reshape(expert_in, e, g * cap, d)
     gate = f(torch.bmm(ein, w_gate))
     up = torch.bmm(ein, w_up)
-    expert_out = torch.bmm(gate * up, w_down).reshape(e, g, cap, d)
+    expert_out = reshape(torch.bmm(gate * up, w_down), e, g, cap, d)
+    if tp:
+        expert_out = constrain(expert_out, cfg, ("tp", "dp", None, None))
 
-    out = torch.einsum("gsec,egcd->gsd", combine, expert_out)
+    out = torch.einsum("gsec,egcd->gsd", combine,
+                       replicate_dims(expert_out, (1, 2, 3)))
     if x.shape[0] != g0:
-        out = out.reshape(g0, s0, d)
+        out = reshape(out, g0, s0, d)
     return out, aux.to(f32)

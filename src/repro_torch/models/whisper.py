@@ -23,8 +23,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.attention import attention, decode_attention
-from repro_torch.models.common import (ModelConfig, dense_init, rms_norm,
+from repro_torch.models.common import (ModelConfig, dense_init, on_mesh,
+                                       reshape, rms_norm,
                                        sinusoidal_positions)
+from repro_torch.sharding.rules import gather_rows, pin_activation
 
 
 def _init_cross(gen, cfg: ModelConfig, n: int) -> dict:
@@ -75,33 +77,36 @@ def encode(cfg: ModelConfig, params: dict,
         lp = lm._layer(params["enc_blocks"], i)
         x = lm._attn_apply(cfg, lp["attn"], x, positions, causal=False)
         x, _ = lm._ffn_apply(cfg, lp["ffn"], x)
-    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+    return rms_norm(pin_activation(x), params["enc_final_norm"],
+                    cfg.norm_eps)
 
 
 def _cross_kv(cfg: ModelConfig, p: dict, enc: torch.Tensor):
     b = enc.shape[0]
     shape = (b, -1, cfg.kv_heads, cfg.hd)
-    return (torch.matmul(enc, p["wk"]).reshape(shape),
-            torch.matmul(enc, p["wv"]).reshape(shape))
+    return (reshape(torch.matmul(enc, p["wk"]), *shape),
+            reshape(torch.matmul(enc, p["wv"]), *shape))
 
 
 def _cross_apply(cfg: ModelConfig, p: dict, x: torch.Tensor,
                  enc: torch.Tensor) -> torch.Tensor:
+    x = pin_activation(x)
     b, s, _ = x.shape
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = torch.matmul(xn, p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    q = reshape(torch.matmul(xn, p["wq"]), b, s, cfg.n_heads, cfg.hd)
     k, v = _cross_kv(cfg, p, enc)
     out = attention(q, k, v, causal=False)
-    return x + torch.matmul(out.reshape(b, s, cfg.n_heads * cfg.hd),
+    return x + torch.matmul(reshape(out, b, s, cfg.n_heads * cfg.hd),
                             p["wo"])
 
 
+@on_mesh
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Full teacher-forced pass. Returns (decoder hidden, aux = 0)."""
-    enc = encode(cfg, params, frames)
+    enc = pin_activation(encode(cfg, params, frames))
     b, s = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = gather_rows(params["embed"], tokens).to(cfg.dtype)
     x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(cfg.dtype)
     positions = _positions(b, s, x.device)
     for i in range(cfg.n_layers):
@@ -109,7 +114,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         x = lm._attn_apply(cfg, lp["attn"], x, positions, causal=True)
         x = _cross_apply(cfg, lp["cross"], x, enc)
         x, _ = lm._ffn_apply(cfg, lp["ffn"], x)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(pin_activation(x), params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -129,11 +134,12 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
             "xk": zeros(cfg.enc_seq), "xv": zeros(cfg.enc_seq)}
 
 
+@on_mesh
 def prefill_cross(cfg: ModelConfig, params: dict, cache: dict,
                   frames: torch.Tensor) -> dict:
     """Run the encoder once and write every layer's cross K/V into the
     cache (in place; the cache is returned)."""
-    enc = encode(cfg, params, frames)
+    enc = pin_activation(encode(cfg, params, frames))
     for i in range(cfg.n_layers):
         k, v = _cross_kv(cfg, lm._layer(params["dec_blocks"]["cross"], i),
                          enc)
@@ -141,12 +147,13 @@ def prefill_cross(cfg: ModelConfig, params: dict, cache: dict,
     return cache
 
 
+@on_mesh
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 cache: dict, pos: int) -> tuple[torch.Tensor, dict]:
     """token: (b, 1) integer; pos: the cache write position (int)."""
     b = token.shape[0]
     h, hd = cfg.n_heads, cfg.hd
-    x = params["embed"][token].to(cfg.dtype)
+    x = gather_rows(params["embed"], token).to(cfg.dtype)
     x = x + lm._sinusoid_row(pos, cfg.d_model, x.device).to(cfg.dtype)
     full = torch.full((b,), cache["xk"].shape[2] - 1, dtype=torch.int32,
                       device=x.device)
@@ -157,9 +164,9 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
         # cross-attention against the precomputed encoder K/V
         p = lp["cross"]
         xn = rms_norm(x, p["norm"], cfg.norm_eps)
-        q = torch.matmul(xn, p["wq"]).reshape(b, 1, h, hd)
+        q = reshape(torch.matmul(xn, p["wq"]), b, 1, h, hd)
         out = decode_attention(q, cache["xk"][i], cache["xv"][i], full)
-        x = x + torch.matmul(out.reshape(b, 1, h * hd), p["wo"])
+        x = x + torch.matmul(reshape(out, b, 1, h * hd), p["wo"])
         x, _ = lm._ffn_apply(cfg, lp["ffn"], x)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return lm.logits_fn(cfg, params, x), cache

@@ -17,6 +17,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.ckpt.checkpoint import Checkpointer
+from repro_torch.sharding.rules import is_dtensor
 
 
 class SimulatedFailure(RuntimeError):
@@ -52,6 +53,8 @@ def _floats(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_floats(v) for v in tree)
     if isinstance(tree, torch.Tensor):
+        if is_dtensor(tree):
+            tree = tree.full_tensor()
         return float(tree.detach().cpu())
     return float(tree)
 

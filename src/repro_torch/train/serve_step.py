@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.models import lm, whisper
 from repro_torch.models.common import ModelConfig, require_kind
+from repro_torch.sharding import rules
 
 
 def _module(cfg: ModelConfig):
@@ -28,7 +29,10 @@ def make_serve_step(cfg: ModelConfig):
 
     def serve(params, token, cache, pos):
         logits, cache = mod.decode_step(cfg, params, token, cache, pos)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # a vocab-sharded DTensor is gathered first: DTensor's argmax
+        # cannot reduce over a sharded dim
+        last = rules.replicate_dims(logits[:, -1, :], (-1,))
+        nxt = torch.argmax(last, dim=-1).to(torch.int32)
         return nxt[:, None], cache
 
     return serve

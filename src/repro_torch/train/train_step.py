@@ -22,7 +22,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import lm, whisper
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, mesh_ops
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.train import optimizer as opt
 
 F32 = torch.float32
@@ -45,8 +46,16 @@ def _ce_chunk(h_c: torch.Tensor, t_c: torch.Tensor, w: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     valid = t_c >= 0
     # a -1 target picks 0, as the reference's iota compare does
-    picked = torch.gather(logits, -1, t_c.clamp(min=0).long()[..., None])
-    picked = torch.where(valid, picked[..., 0], 0.0)
+    if is_dtensor(logits):
+        # the reference's iota compare: elementwise, so a vocab-sharded
+        # chunk sums partial picks (DTensor's gather cannot unmask one);
+        # every other term is an exact 0, so the pick is the same number
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        picked = torch.where(iota == t_c[..., None], logits, 0.0).sum(-1)
+    else:
+        picked = torch.gather(logits, -1,
+                              t_c.clamp(min=0).long()[..., None])[..., 0]
+    picked = torch.where(valid, picked, 0.0)
     valid = valid.to(F32)
     nll = (lse - picked) * valid
     zl = z_loss * (lse * lse) * valid
@@ -97,7 +106,7 @@ def value_and_grad(cfg: ModelConfig, tcfg: TrainConfig, params: dict,
     leaves = opt.tree_leaves(params)
     wrt = [p.detach().requires_grad_(True) for p in leaves]
     it = iter(wrt)
-    with torch.enable_grad():
+    with torch.enable_grad(), mesh_ops():
         loss = loss_fn(cfg, tcfg, opt.tree_map(lambda _: next(it), params),
                        batch)
         grads = torch.autograd.grad(loss, wrt, allow_unused=True)
@@ -109,9 +118,15 @@ def value_and_grad(cfg: ModelConfig, tcfg: TrainConfig, params: dict,
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"}). New trees are returned; the given ones are not
-    changed."""
+    changed. The leaves may be DTensors on a mesh (``launch.train
+    --mesh``): the step is the same code, DTensor runs each op on the
+    local shards."""
 
     def step(params, opt_state, batch):
+        with mesh_ops():
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         mb = tcfg.microbatches
         if mb > 1:
             for i in range(mb):

@@ -246,6 +246,20 @@ def test_obs_ckpt_runtime_import_with_jax_blocked():
     ("models.attention", ("repeat_kv", "chunked_attention",
                           "decode_attention", "update_cache")),
     ("launch.train", ("main",)),
+    ("sharding.rules", ("FSDP_ARCHS", "batch_axes", "param_specs",
+                        "param_shardings", "opt_state_spec_from_param_spec",
+                        "opt_state_specs", "enforce_divisible", "batch_spec",
+                        "activation_spec", "logits_spec", "kv_cache_spec",
+                        "ssm_cache_specs", "cache_specs")),
+    ("launch.mesh", ("make_production_mesh", "make_debug_mesh",
+                     "domain_axes")),
+    ("launch.dryrun", ("SHAPES", "HBM_PER_CHIP", "opt_config_for",
+                       "skip_reason", "input_specs", "model_flops",
+                       "lower_cell", "optimize_cfg", "run_cell",
+                       "run_pic_dryrun", "main")),
+    ("roofline.analysis", ("PEAK_FLOPS", "HBM_BW", "LINK_BW", "Roofline",
+                           "analyze")),
+    ("roofline.report", ("fmt_row", "HEADER", "render")),
 ])
 def test_ported_modules_have_the_reference_names(module, names):
     """Each ported module has the reference's public names; ``obs`` has the
@@ -277,6 +291,9 @@ def test_training_modules_import_with_jax_blocked():
             "from repro_torch.models.attention import attention, "
             "chunked_attention\n"
             "import repro_torch.launch.train\n"
+            "from repro_torch.sharding import rules\n"
+            "from repro_torch.launch import dryrun, mesh\n"
+            "from repro_torch.roofline import analysis, report\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env={"PYTHONPATH": str(ROOT / "src"),
@@ -284,3 +301,23 @@ def test_training_modules_import_with_jax_blocked():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each module of ``src/repro`` has one at the same path in
+    ``src/repro_torch``, but two: ``kernels/ref.py``, whose oracles are
+    the ``*_plain`` functions beside each kernel of the port, and
+    ``roofline/hlo_parser.py``: the port counts a program as it runs and
+    has no HLO to parse (ROADMAP, queue 3)."""
+    ref = {p.relative_to(ROOT / "src" / "repro")
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(ROOT / "src" / "repro_torch")
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    missing = sorted(str(p) for p in ref - port
+                     if p.name != "__init__.py")
+    assert missing == ["kernels/ref.py", "roofline/hlo_parser.py"]
+
+
+def test_no_module_of_the_port_says_not_ported():
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        assert "not ported" not in path.read_text().lower(), path

@@ -94,8 +94,28 @@ def test_build_raises_on_an_unknown_kind():
 
 
 def test_tensor_parallel_config_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dataclasses.replace(get_smoke_config("qwen2-0.5b"), tp_axis="model")
+    """``tp_axis`` names an axis of the DeviceMesh: the config is legal, a
+    plain tensor passes ``constrain`` unchanged, and a DTensor on a mesh
+    without that axis raises."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import rules
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-0.5b"), tp_axis="pod")
+    x = torch.ones(2, 8)
+    assert common.constrain(x, cfg, ("dp", "tp")) is x
+    assert not torch.distributed.is_initialized()
+    mesh = mesh_lib.make_debug_mesh(1, 1, device="cpu")
+    try:
+        dx = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+        with pytest.raises(ValueError, match="no axis 'pod'"):
+            common.constrain(dx, cfg, ("dp", "tp"))
+        ok = dataclasses.replace(cfg, tp_axis="model", dp_axes=("data",))
+        assert common.constrain(dx, ok, ("dp", "tp")).placements == \
+            rules.placements(rules.Spec("data", "model"), mesh)
+    finally:
+        mesh_lib.stop_group()
 
 
 # ------------------------------------------------------------------- layers

@@ -133,9 +133,13 @@ def test_launcher_prints_the_reference_line(capsys, tmp_path):
 
 
 def test_launcher_refuses_a_mesh():
-    for mesh in ("pod", "multipod"):
-        with pytest.raises(NotImplementedError, match="tools slice"):
+    """The production meshes need 256 and 512 ranks; a single process has
+    one, and the launcher names the ranks it needs (and leaves no group)."""
+    for mesh, need in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(RuntimeError, match=f"needs {need} ranks; the "
+                           f"process group has 1"):
             train_launcher.main(["--device", "cpu", "--mesh", mesh])
+        assert not torch.distributed.is_initialized()
 
 
 def test_launcher_never_falls_back_to_the_cpu(tmp_path):
