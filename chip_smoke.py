@@ -93,7 +93,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    2 with the same draws (counts, masks, rings and pending exact, x
    within 1e-5 of the slab, v 1e-4 of max|v|, rho 1e-3); and ``pic_run
    --domains 4 --async-n 4 --field-solve --phases`` at full size, its
-   lines in the reference launcher's form;
+   lines in the reference launcher's form, then one line a span name
+   (host self and device ms a step);
 10. the engine's observability and resilience (after phase 9), at the
    §3.3 configuration with the field solve and ionization at D 4 x
    async_n 4, and at its bitwise configuration (field solve and ionization
@@ -1881,14 +1882,15 @@ LAUNCHER_LINES = (
     r"'D/count': \d+\}",
     r"queue balance: \{'e/queue_occ': \[\d+, \d+, \d+, \d+\], "
     r"'e/queue_skew': \d+, .*\}",
-    r"per-phase \(us/step\): \{'ingest': [\d.]+, 'field': [\d.]+, "
-    r"'push': [\d.]+, 'collide': [\d.]+, 'migrate': [\d.]+, "
-    r"'merge': [\d.]+, 'diag': [\d.]+\} total=[\d.]+")
+    r"spans \(ms/step over 3 steps\): host self, device")
+# one line a span name after the last of LAUNCHER_LINES
+SPAN_LINE = r"  [\w/+]+: -?[\d.]+, [\d.]+"
 
 
 def engine_launcher(counters):
     """``pic_run --domains 4 --async-n 4 --field-solve --phases`` at full
-    size, 3 steps: its lines in the reference launcher's form."""
+    size, 3 steps: its lines in the reference launcher's form, then its
+    spans."""
     import contextlib
     import io
 
@@ -1907,9 +1909,10 @@ def engine_launcher(counters):
         if not re.fullmatch(pat, line):
             raise AssertionError(f"pic_run line {line!r} is not in the "
                                  f"reference launcher's form {pat!r}")
-    if len(lines) < len(LAUNCHER_LINES) or not all(
-            ln.startswith("probe flag: ")
-            for ln in lines[len(LAUNCHER_LINES):]):
+    spans = lines[len(LAUNCHER_LINES):]
+    if (not all(re.fullmatch(SPAN_LINE, ln) for ln in spans)
+            or not any(ln.startswith("  engine/queue/q3: ")
+                       for ln in spans)):
         raise AssertionError(f"pic_run printed {lines}")
     counts = launches(counters)
     log(f"engine pic_run --domains 4 --async-n 4: launches {counts}")

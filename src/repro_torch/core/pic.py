@@ -34,6 +34,7 @@ from repro_torch.core.params import RuntimeParams, b_active
 from repro_torch.core.particles import (SpeciesBuffer, init_uniform,
                                         stack_species, unstack_species)
 from repro_torch.device import resolve_device
+from repro_torch.obs.tracing import phase_scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,15 +348,23 @@ def _push_all(state: PICState, cfg: PICConfig, e: torch.Tensor,
 def step_fn(state: PICState, cfg: PICConfig,
             params: RuntimeParams | None = None,
             draws: Sequence[dict] | None = None) -> tuple[PICState, dict]:
-    """One PIC cycle. ``params`` (optional) supplies the runtime scalars
-    (dt, b, the source and collision coefficients) in place of the
-    config's; the two are bit-identical for equal values (see
+    """One PIC cycle, in a ``cycle/step`` scope (``obs/tracing``) whose
+    children are its phases: ``cycle/field``, ``cycle/push``,
+    ``cycle/collide``, ``cycle/see``, ``cycle/ionize`` and ``cycle/diag``,
+    each entered only where its phase runs. ``params`` (optional) supplies
+    the runtime scalars (dt, b, the source and collision coefficients) in
+    place of the config's; the two are bit-identical for equal values (see
     ``core/params.py``). ``draws`` (optional) replaces the generator for
     the Monte-Carlo phases: one dict per phase in the reference's key order
     (each collision-menu entry, each wall-emission pair, then ionization),
     each with the arrays that phase would draw (see ``collisions`` and
     ``boundaries``)."""
-    rp = params
+    with phase_scope("cycle/step"):
+        return _cycle(state, cfg, params, draws)
+
+
+def _cycle(state: PICState, cfg: PICConfig, rp: RuntimeParams | None,
+           draws: Sequence[dict] | None) -> tuple[PICState, dict]:
     _check_params(cfg, rp)
     grid = cfg.grid
     dev = state.species[0].x.device
@@ -367,85 +376,114 @@ def step_fn(state: PICState, cfg: PICConfig,
 
     if not cfg.field_solve:
         e = torch.zeros(grid.ng, dtype=torch.float32, device=dev)
-    elif carried and state.rho is not None:
-        e = field_from_rho(cfg, state.rho)
     else:
-        e = compute_field(cfg, state.species)
+        with phase_scope("cycle/field"):
+            e = (field_from_rho(cfg, state.rho)
+                 if carried and state.rho is not None
+                 else compute_field(cfg, state.species))
 
-    species, hits, diag, new_rho = _push_all(state, cfg, e, rp)
+    with phase_scope("cycle/push"):
+        species, hits, diag, new_rho = _push_all(state, cfg, e, rp)
 
     if cfg.collisions:
-        # rates from the start-of-step cell densities; pairing and
-        # scattering act on the pushed velocities. Collisions change only
-        # v, so the carried rho needs no correction.
-        dens = {i: collisions.cell_density(grid, state.species[i])
-                for i in collisions.density_species(cfg.collisions)}
-        bufs = {i: species[i]
-                for i in collisions.involved_species(cfg.collisions)}
-        menu_draws = (None if draws is None else
-                      [next_draws() for _ in cfg.collisions])
-        bufs, cdiag = collisions.apply_menu(
-            state.gen, bufs, cfg.collisions, dens, grid,
-            cfg.dt if rp is None else rp.dt, cfg.collide_kernel, menu_draws,
-            rates=None if rp is None else rp.collision_rates)
-        for i, b in bufs.items():
-            species[i] = b
-        diag.update(cdiag)
+        with phase_scope("cycle/collide"):
+            _collide(state, cfg, rp, species, diag,
+                     None if draws is None else
+                     [next_draws() for _ in cfg.collisions])
 
     if cfg.wall_emission and cfg.boundary == "absorb":
-        eparams = EmissionParams(yield_=(cfg.emission_yield if rp is None
-                                         else rp.emission_yield),
-                                 vth_emit=cfg.emission_vth,
-                                 weight=cfg.emission_weight)
-        for primary, target in cfg.wall_emission:
-            hl, hr = hits[primary]
-            species[target], d, erows = wall_emission(
-                state.gen, species[primary], hl, hr, species[target],
-                eparams, cfg.length, draws=next_draws())
-            q_t = cfg.species[target].charge
-            if carried and new_rho is not None and q_t != 0.0:
-                # birth charge folds into the carried in-pass deposit
-                new_rho = new_rho + deposit_windowed(
-                    grid, erows.x, q_t * erows.w * erows.ok)
-            diag.update({f"{cfg.species[target].name}/{k}": v
-                         for k, v in d.items()})
+        with phase_scope("cycle/see"):
+            eparams = EmissionParams(
+                yield_=(cfg.emission_yield if rp is None
+                        else rp.emission_yield),
+                vth_emit=cfg.emission_vth, weight=cfg.emission_weight)
+            for primary, target in cfg.wall_emission:
+                hl, hr = hits[primary]
+                species[target], d, erows = wall_emission(
+                    state.gen, species[primary], hl, hr, species[target],
+                    eparams, cfg.length, draws=next_draws())
+                q_t = cfg.species[target].charge
+                if carried and new_rho is not None and q_t != 0.0:
+                    # birth charge folds into the carried in-pass deposit
+                    new_rho = new_rho + deposit_windowed(
+                        grid, erows.x, q_t * erows.w * erows.ok)
+                diag.update({f"{cfg.species[target].name}/{k}": v
+                             for k, v in d.items()})
 
     if cfg.ionization is not None:
-        ni, ei, ii = cfg.ionization
-        iparams = collisions.IonizationParams(
-            rate=cfg.ionization_rate if rp is None else rp.ionization_rate,
-            vth_electron=cfg.ionization_vth_e)
-        neu, ele, ion, d, births = collisions.ionize(
-            state.gen, species[ni], species[ei], species[ii], grid, iparams,
-            cfg.dt if rp is None else rp.dt, draws=next_draws())
-        species[ni], species[ei], species[ii] = neu, ele, ion
-        if carried and new_rho is not None:
-            # one deposit for both halves of every born pair; the killed
-            # neutral carries no charge (see _carries_rho)
-            q_e = cfg.species[ei].charge
-            q_i = cfg.species[ii].charge
-            bw = births.w * births.ok
-            new_rho = new_rho + deposit_windowed(
-                grid, torch.stack([births.x, births.x]),
-                torch.stack([q_e * bw, q_i * bw]))
-        diag.update(d)
+        with phase_scope("cycle/ionize"):
+            new_rho = _ionize(state, cfg, rp, species, diag, new_rho,
+                              carried, next_draws())
 
     species = tuple(species)
     # the full-buffer reductions run only every diag_every-th step
-    on = state.step % cfg.diag_every == 0
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     zero_f = torch.zeros((), dtype=torch.float32, device=dev)
-    for sc, buf in zip(cfg.species, species):
-        diag[f"{sc.name}/count"] = buf.count() if on else zero_i
-        diag[f"{sc.name}/ke"] = (diagnostics.kinetic_energy(buf, sc.mass)
-                                 if on else zero_f)
-    if cfg.field_solve:
-        diag["field_energy"] = (diagnostics.field_energy(e, grid, cfg.eps0)
-                                if on else zero_f)
+    if state.step % cfg.diag_every == 0:
+        with phase_scope("cycle/diag"):
+            for sc, buf in zip(cfg.species, species):
+                diag[f"{sc.name}/count"] = buf.count()
+                diag[f"{sc.name}/ke"] = diagnostics.kinetic_energy(
+                    buf, sc.mass)
+            if cfg.field_solve:
+                diag["field_energy"] = diagnostics.field_energy(
+                    e, grid, cfg.eps0)
+    else:
+        for sc in cfg.species:
+            diag[f"{sc.name}/count"] = zero_i
+            diag[f"{sc.name}/ke"] = zero_f
+        if cfg.field_solve:
+            diag["field_energy"] = zero_f
 
     out = PICState(species=species, gen=state.gen, step=state.step + 1,
                    rho=new_rho if carried else state.rho)
     return out, diag
+
+
+def _collide(state: PICState, cfg: PICConfig, rp: RuntimeParams | None,
+             species: list, diag: dict, menu_draws) -> None:
+    """The collision menu on the pushed ``species`` (in place)."""
+    # rates from the start-of-step cell densities; pairing and scattering
+    # act on the pushed velocities. Collisions change only v, so the
+    # carried rho needs no correction.
+    grid = cfg.grid
+    dens = {i: collisions.cell_density(grid, state.species[i])
+            for i in collisions.density_species(cfg.collisions)}
+    bufs = {i: species[i]
+            for i in collisions.involved_species(cfg.collisions)}
+    bufs, cdiag = collisions.apply_menu(
+        state.gen, bufs, cfg.collisions, dens, grid,
+        cfg.dt if rp is None else rp.dt, cfg.collide_kernel, menu_draws,
+        rates=None if rp is None else rp.collision_rates)
+    for i, b in bufs.items():
+        species[i] = b
+    diag.update(cdiag)
+
+
+def _ionize(state: PICState, cfg: PICConfig, rp: RuntimeParams | None,
+            species: list, diag: dict, new_rho, carried: bool, draws):
+    """MC ionization of the pushed ``species`` (in place), with the births'
+    charge deposited into the carried ``new_rho``; returns that rho."""
+    grid = cfg.grid
+    ni, ei, ii = cfg.ionization
+    iparams = collisions.IonizationParams(
+        rate=cfg.ionization_rate if rp is None else rp.ionization_rate,
+        vth_electron=cfg.ionization_vth_e)
+    neu, ele, ion, d, births = collisions.ionize(
+        state.gen, species[ni], species[ei], species[ii], grid, iparams,
+        cfg.dt if rp is None else rp.dt, draws=draws)
+    species[ni], species[ei], species[ii] = neu, ele, ion
+    if carried and new_rho is not None:
+        # one deposit for both halves of every born pair; the killed
+        # neutral carries no charge (see _carries_rho)
+        q_e = cfg.species[ei].charge
+        q_i = cfg.species[ii].charge
+        bw = births.w * births.ok
+        new_rho = new_rho + deposit_windowed(
+            grid, torch.stack([births.x, births.x]),
+            torch.stack([q_e * bw, q_i * bw]))
+    diag.update(d)
+    return new_rho
 
 
 def diag_spec(cfg: PICConfig) -> dict[str, torch.dtype]:

@@ -30,8 +30,15 @@ skew-triggered rebalance, ``cell_order``) -> halo field -> per queue: fused
 push (``boundary="open"``, carried rho) -> collide -> MC ionization ->
 migrate + SEE -> deferred merge -> diagnostics. ``make_engine_step(upto=)``
 builds the probes of ``PHASES``; each phase and queue stage runs inside an
-``obs.tracing.phase_scope`` range (``record_function`` plus NVTX) with the
-reference's scope name.
+``obs.tracing.phase_scope`` with the reference's scope name. Scopes only
+the port has name the host work between them: ``engine/step`` (the root),
+``engine/buffers`` (the step's receive buffers, ring rows and carried
+rho), per (domain, queue) ``engine/queue/q<k>`` around everything issued
+on the queue's stream, with ``engine/slice/q<k>`` (the queue's gather)
+and ``engine/ring/q<k>`` (its turn in the domain's ring chain, holding
+``engine/births/q<k>`` and the SEE stage) beside the stages,
+``engine/join`` (the wait for every queue) and ``engine/release`` (the
+step's working set freed).
 
 No host synchronisation inside a step: packing is done by prefix sums
 (``particles.nonzero_static``), never ``torch.nonzero``, and no ``.item()``
@@ -713,27 +720,30 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                     for i in collisions.density_species(coll)}
                     for r in range(d)]
 
-        # receive buffers of the migration packs: (D, S, n_q, 2, m_q) per
-        # group, [.., k, 0] from the left neighbour, [.., k, 1] from the
-        # right, so a domain's rows read as the reference's concatenation
-        # (q0 left, q0 right, q1 left, ...)
-        recv = [StackedSpecies(
-            x=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
-            v=torch.zeros(d, len(idxs), n_q, 2, m_q, 3, device=dev),
-            w=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
-            alive=torch.zeros(d, len(idxs), n_q, 2, m_q, dtype=torch.bool,
-                              device=dev)) for idxs in groups]
-        contrib: list[tuple[str, torch.Tensor]] = []
-        kept = [[[None] * n_q for _ in range(d)] for _ in groups]
-        births = [[[] for _ in range(d)] for _ in groups]
-        # each domain's own ring rows and carried rho: a domain's chain of
-        # queues updates only these, so no stream reads another domain's
-        rrows = [[_ring_row(rg, r) for r in range(d)] for rg in rings]
-        rho_acc = [torch.zeros(ngl, dtype=torch.float32, device=dev)
-                   if carried else None for _ in range(d)]
-        done = []              # each queue's last event
-        keep = []              # tensors read across streams: held to the end
-        ready = record()       # every input of the queues is on main
+        with phase_scope("engine/buffers"):
+            # receive buffers of the migration packs: (D, S, n_q, 2, m_q)
+            # per group, [.., k, 0] from the left neighbour, [.., k, 1]
+            # from the right, so a domain's rows read as the reference's
+            # concatenation (q0 left, q0 right, q1 left, ...)
+            recv = [StackedSpecies(
+                x=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
+                v=torch.zeros(d, len(idxs), n_q, 2, m_q, 3, device=dev),
+                w=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
+                alive=torch.zeros(d, len(idxs), n_q, 2, m_q,
+                                  dtype=torch.bool, device=dev))
+                for idxs in groups]
+            contrib: list[tuple[str, torch.Tensor]] = []
+            kept = [[[None] * n_q for _ in range(d)] for _ in groups]
+            births = [[[] for _ in range(d)] for _ in groups]
+            # each domain's own ring rows and carried rho: a domain's chain
+            # of queues updates only these, so no stream reads another
+            # domain's
+            rrows = [[_ring_row(rg, r) for r in range(d)] for rg in rings]
+            rho_acc = [torch.zeros(ngl, dtype=torch.float32, device=dev)
+                       if carried else None for _ in range(d)]
+            done = []          # each queue's last event
+            keep = []          # tensors read across streams: held to the end
+            ready = record()   # every input of the queues is on main
 
         def dacc(name, k, v):
             contrib.append((f"{name}/{k}" if name else k, v))
@@ -749,9 +759,10 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                 qm, dts, charges = gconsts[g]
                 st = _map(sts[g], lambda a, r=r: a[r])
                 for k in range(n_q):
-                    with on(r, k):
-                        wait(ready)
-                        q = _queue_slice(st, n_q, k)
+                    with on(r, k), phase_scope(f"engine/queue/q{k}"):
+                        with phase_scope(f"engine/slice/q{k}"):
+                            wait(ready)
+                            q = _queue_slice(st, n_q, k)
                         with phase_scope(f"engine/push/q{k}"):
                             out, _, _, pdiag, rho_k = mover.push_stacked(
                                 q, e[r], grid_local, qm, dts, b=b,
@@ -849,58 +860,63 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                                     dacc(cfg.species[i].name, n_, v[j])
 
                         # ---- ring and rho updates, in queue order ----
-                        wait(chain)
-                        keep.append([rr[r] for rr in rrows])
-                        if pack is not None:
-                            kq = _ionize_rows(
-                                kq, pack, idxs, g, k, r, rrows, births,
-                                use_ring, loc, groups, group_caps, n_q, b_q,
-                                ion, dacc, dev)
-                        if use_ring:
-                            rrows[g][r] = ring_push(
-                                rrows[g][r], free_idx * n_q + k, free_ok)
-                        for pi, (p_, t_) in enumerate(see_pairs):
-                            if p_ not in idxs:
-                                continue
-                            with phase_scope(f"engine/see/q{k}"):
-                                jp = idxs.index(p_)
-                                emit, ex, ev, ew = \
-                                    boundaries.emission_candidates(
-                                        gen, abs_l[jp], abs_r[jp], eparams,
-                                        l_local, torch.float32,
-                                        None if dr is None
-                                        else dr["see"][pi][k])
-                                gt, jt = loc[t_]
-                                if use_ring:
-                                    rrows[gt][r], dstm, okm = _claim_rows(
-                                        rrows[gt][r], {jt: emit},
-                                        group_caps[gt])
-                                    ok_t, dest_t = okm[jt], dstm[jt]
-                                else:
-                                    ok_t, dest_t = emit, None
-                                births[gt][r].append(_birth_block(
-                                    len(groups[gt]), 2 * m_q, group_caps[gt],
-                                    dev, {jt: (ex, ev, ew, ok_t, dest_t)}))
-                                name = cfg.species[t_].name
-                                dacc(name, "emitted",
-                                     ok_t.sum(dtype=torch.int32))
-                                dacc(name, "emission_overflow",
-                                     (emit & ~ok_t).sum(dtype=torch.int32))
-                        if carried:
-                            rho_acc[r] = (rho_acc[r] + rho_k) - lv_rho
-                            keep.append(rho_acc[r])
-                        kept[g][r][k] = kq
-                        chain = record()
-                        done.append(chain)
+                        # (births and SEE claim ring rows inside the turn)
+                        with phase_scope(f"engine/ring/q{k}"):
+                            wait(chain)
+                            keep.append([rr[r] for rr in rrows])
+                            if pack is not None:
+                                with phase_scope(f"engine/births/q{k}"):
+                                    kq = _ionize_rows(
+                                        kq, pack, idxs, g, k, r, rrows,
+                                        births, use_ring, loc, groups,
+                                        group_caps, n_q, b_q, ion, dacc, dev)
+                            if use_ring:
+                                rrows[g][r] = ring_push(
+                                    rrows[g][r], free_idx * n_q + k, free_ok)
+                            for pi, (p_, t_) in enumerate(see_pairs):
+                                if p_ not in idxs:
+                                    continue
+                                with phase_scope(f"engine/see/q{k}"):
+                                    jp = idxs.index(p_)
+                                    emit, ex, ev, ew = \
+                                        boundaries.emission_candidates(
+                                            gen, abs_l[jp], abs_r[jp], eparams,
+                                            l_local, torch.float32,
+                                            None if dr is None
+                                            else dr["see"][pi][k])
+                                    gt, jt = loc[t_]
+                                    if use_ring:
+                                        rrows[gt][r], dstm, okm = _claim_rows(
+                                            rrows[gt][r], {jt: emit},
+                                            group_caps[gt])
+                                        ok_t, dest_t = okm[jt], dstm[jt]
+                                    else:
+                                        ok_t, dest_t = emit, None
+                                    births[gt][r].append(_birth_block(
+                                        len(groups[gt]), 2 * m_q,
+                                        group_caps[gt], dev,
+                                        {jt: (ex, ev, ew, ok_t, dest_t)}))
+                                    name = cfg.species[t_].name
+                                    dacc(name, "emitted",
+                                         ok_t.sum(dtype=torch.int32))
+                                    dacc(name, "emission_overflow",
+                                         (emit & ~ok_t).sum(dtype=torch.int32))
+                            if carried:
+                                rho_acc[r] = (rho_acc[r] + rho_k) - lv_rho
+                                keep.append(rho_acc[r])
+                            kept[g][r][k] = kq
+                            chain = record()
+                            done.append(chain)
                     keep.append(st)
 
         # ---- the merge waits for every queue (depend(in)) ----
-        for ev in done:
-            wait(ev)
-        rings = [FreeSlotRing(slots=rg.slots,
-                              head=torch.stack([rr.head for rr in rows]),
-                              count=torch.stack([rr.count for rr in rows]))
-                 for rg, rows in zip(rings, rrows)]
+        with phase_scope("engine/join"):
+            for ev in done:
+                wait(ev)
+            rings = [FreeSlotRing(
+                slots=rg.slots, head=torch.stack([rr.head for rr in rows]),
+                count=torch.stack([rr.count for rr in rows]))
+                for rg, rows in zip(rings, rrows)]
         if upto in ("push", "collide", "migrate"):
             for g in range(len(groups)):
                 sts[g] = _merged(sts[g], kept[g], n_q)
@@ -995,17 +1011,26 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
                     diag[f"{sc.name}/ring_free"] = rings[g].count[:, j].sum()
                     diag[f"{sc.name}/pending_rows"] = pend_out[g].alive[
                         :, j].sum(dtype=torch.int32)
-        return pack_state(rho_out, pend_out), diag
+        out = pack_state(rho_out, pend_out)
+        with phase_scope("engine/release"):
+            # the step's working set (~900 tensors) is freed here, in a
+            # scope, rather than unranged as the frame unwinds
+            for held in (keep, kept, births, contrib, recv, rrows, rho_acc,
+                         done):
+                held.clear()
+        return out, diag
 
     if with_params:
         def step_params(state: EngineState, params: RuntimeParams,
                         draws=None):
-            return step(state, params, draws)
+            with phase_scope("engine/step"):
+                return step(state, params, draws)
 
         return step_params
 
     def step_static(state: EngineState, draws=None):
-        return step(state, None, draws)
+        with phase_scope("engine/step"):
+            return step(state, None, draws)
 
     return step_static
 

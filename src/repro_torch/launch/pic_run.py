@@ -24,17 +24,19 @@ step and the final populations, in the reference launcher's form.
 --domains D > 1, --async-n n > 1, a rebalance trigger or --cell-order run
 the multi-domain engine (``repro_torch.distributed``) in one process: D
 domains, each with n queues on their own CUDA streams; it prints the MC
-sources of the last step, the per-queue balance and, with --phases, the
-per-phase breakdown of the engine's probes. --domains 1 --async-n 1 keeps
-the single-domain cycle.
+sources of the last step and the per-queue balance. --domains 1
+--async-n 1 keeps the single-domain cycle.
 
 Observability (``repro_torch.obs``): --profile-dir DIR captures a
 ``torch.profiler`` trace of the run into DIR (a Chrome trace, for Perfetto;
-the engine's phase ranges appear in it, and as NVTX ranges under Nsight
-Systems); --metrics-jsonl FILE streams one structured metrics record per
-engine step; --autotune lets the online controller retune the engine knobs
-(async_n, migration/birth budgets, rebalance triggers) from the measured
-stream between steps. The last two force the engine path even at
+the cycle's and the engine's phase ranges appear in it, and as NVTX ranges
+under Nsight Systems) and the span recorder's spans beside it
+(``DIR/spans.jsonl``, one ``obs.tracing.spans()`` record a line); --phases
+prints each span name's host self ms and device ms a step over the run's
+steps, from the same recorder; --metrics-jsonl FILE streams one structured
+metrics record per engine step; --autotune lets the online controller
+retune the engine knobs (async_n, migration/birth budgets, rebalance
+triggers) from the measured stream between steps. The last two force the engine path even at
 --domains 1.
 
 Resilience (``repro_torch.runtime.resilience``): --ckpt-dir DIR checkpoints
@@ -56,7 +58,10 @@ auto-tuner flags.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
+import os
 import time
 
 
@@ -96,8 +101,8 @@ def main(argv=None) -> None:
     ap.add_argument("--diag-every", type=int, default=1,
                     help="compute full diagnostics every K-th step")
     ap.add_argument("--phases", action="store_true",
-                    help="print the per-phase timing breakdown "
-                         "(multi-domain)")
+                    help="print each span's host self and device ms a "
+                         "step over the run's steps")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' runs the kernels; 'cpu' their plain "
                          "PyTorch versions")
@@ -147,7 +152,7 @@ def main(argv=None) -> None:
                                               make_engine_config,
                                               make_see_config)
     from repro_torch.core import pic
-    from repro_torch.distributed import engine, perf
+    from repro_torch.distributed import engine
     from repro_torch.obs import MetricsStream, tracing
     from repro_torch.obs.metrics import host_values
 
@@ -174,13 +179,12 @@ def main(argv=None) -> None:
     want_stream = bool(args.metrics_jsonl or args.autotune)
     profile_dir = args.profile_dir or None
     t0 = time.perf_counter()
-    ecfg = None
     balance = {}
     if (args.domains == 1 and args.async_n == 1
             and args.rebalance_every == 0 and args.rebalance_skew == 0
             and not args.cell_order and not want_stream and not resilient):
         state = pic.init_state(cfg, 0, device=dev)
-        with tracing.trace_session(profile_dir):
+        with _observed(args):
             final, diags = pic.run(cfg, args.steps, state=state)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -229,7 +233,7 @@ def main(argv=None) -> None:
             inj = (FailureInjector(args.fail_at_step, fired=args.resume)
                    if args.fail_at_step >= 0 else None)
             try:
-                with tracing.trace_session(profile_dir):
+                with _observed(args):
                     state, run_diags = resilience.run_engine(
                         ecfg, state, num_steps=args.steps, ckpt=ckpt,
                         ckpt_every=args.ckpt_every, injector=inj,
@@ -246,15 +250,14 @@ def main(argv=None) -> None:
         elif args.autotune:
             from repro_torch.obs.autotune import AutoTuner
             tuner = AutoTuner(ecfg, stream=stream)
-            with tracing.trace_session(profile_dir):
+            with _observed(args):
                 for _ in range(args.steps):
                     state, diag = tuner.run_step(state)
-            ecfg = tuner.ecfg
             for line in tuner.log:
                 print("autotune:", line)
         else:
             step = engine.make_engine_step(ecfg)
-            with tracing.trace_session(profile_dir):
+            with _observed(args):
                 for _ in range(args.steps):
                     ts = time.perf_counter()
                     state, diag = step(state)
@@ -278,7 +281,14 @@ def main(argv=None) -> None:
         balance = {k: v.tolist() for k, v in diag.items()
                    if k.endswith(("/queue_occ", "/queue_skew"))}
     wall = time.perf_counter() - t0
+    if profile_dir or args.phases:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        records = tracing.spans()
     if profile_dir:
+        with open(os.path.join(profile_dir, "spans.jsonl"), "w") as fh:
+            for rec in records:
+                fh.write(json.dumps(rec) + "\n")
         print(f"profiler trace written to {profile_dir}")
     print(f"{args.steps} steps, {args.domains} domain(s), "
           f"async_n={args.async_n}, rebalance_every={args.rebalance_every}, "
@@ -288,18 +298,25 @@ def main(argv=None) -> None:
     if balance:
         print("queue balance:", balance)
     if args.phases:
-        if ecfg is None:
-            print("--phases times the engine pipeline; pass --domains or "
-                  "--async-n > 1 (the single-domain run above used the "
-                  "plain hot loop)")
-        else:
-            probe = perf.phase_breakdown(ecfg, iters=3, warmup=1,
-                                         device=dev)
-            print("per-phase (us/step):",
-                  {k: round(v, 1) for k, v in probe["phases"].items()},
-                  f"total={probe['total']:.1f}")
-            for flag in probe["flags"]:
-                print("probe flag:", flag)
+        steps = len({rec["step"] for rec in records})
+        print(f"spans (ms/step over {steps} steps): host self, device")
+        for name, row in tracing.per_step(records).items():
+            dms = ("-" if row["device_ms"] is None
+                   else f"{row['device_ms']:.3f}")
+            print(f"  {name}: {row['host_self_ms']:.3f}, {dms}")
+
+
+@contextlib.contextmanager
+def _observed(args):
+    """The run's observers: the profiler capture of --profile-dir and,
+    with --phases, the span recorder, both over the run's own steps."""
+    from repro_torch.obs import tracing
+
+    tracing.reset()
+    with tracing.trace_session(args.profile_dir or None), (
+            tracing.recording() if args.phases
+            else contextlib.nullcontext()):
+        yield
 
 
 def _serve_ensemble(cfg, args, dev) -> None:

@@ -1,11 +1,13 @@
 """Engine observability: tracing, structured metrics, online auto-tuning
 (the port of ``repro.obs``).
 
-* ``tracing``  — ``phase_scope`` ranges (``torch.profiler.record_function``
-  plus NVTX, the paper's Nsight ranges) threaded through
-  ``distributed/engine.py`` and ``distributed/halo.py``, ``host_span`` host
-  ranges, ``trace_session`` capture around a run (``pic_run
-  --profile-dir``) and ``trace_scope_names`` to read the ranges back;
+* ``tracing``  — ``phase_scope`` ranges (NVTX, the paper's Nsight ranges)
+  threaded through ``core/pic.py``, ``distributed/engine.py`` and
+  ``distributed/halo.py``, and the span recorder behind them (on inside
+  ``recording()`` or a profiler capture: ``record_function`` twins and
+  spans with host and device times, read by ``spans()``);
+  ``trace_session`` capture around a run (``pic_run --profile-dir``) and
+  ``trace_scope_names`` to read the ranges back;
 * ``metrics``  — a structured per-step metrics stream (JSONL run report +
   in-memory ring) of what the engine computes: queue occupancy/skew,
   migration/birth/emission overflows, free-slot-ring occupancy, in-flight
@@ -22,11 +24,11 @@
 from repro_torch.obs.metrics import (MetricsStream, StepMetrics,
                                      atomic_write_json, read_jsonl,
                                      validate_record)
-from repro_torch.obs.tracing import (capture_scopes, host_span, phase_scope,
+from repro_torch.obs.tracing import (capture_scopes, phase_scope,
                                      trace_scope_names, trace_session)
 
 __all__ = [
     "MetricsStream", "StepMetrics", "atomic_write_json", "read_jsonl",
-    "validate_record", "capture_scopes", "host_span", "trace_scope_names",
+    "validate_record", "capture_scopes", "trace_scope_names",
     "phase_scope", "trace_session",
 ]

@@ -23,7 +23,7 @@
     the ``async_n`` validation.
 (c) ``core.decomposition``'s shim at D in {1, 4}.
 (d) ``pic_run --device cpu --domains 4 --async-n 2 --field-solve --phases``
-    prints the reference launcher's lines.
+    prints the reference launcher's lines, then its spans.
 """
 
 import dataclasses
@@ -643,7 +643,9 @@ def test_decomposition_shim(d, boundary):
 
 def test_pic_run_engine_lines(capsys):
     """``pic_run --domains 4 --async-n 2 --field-solve --phases`` prints
-    the reference launcher's lines, in its order."""
+    the reference launcher's lines, in its order, then one line a span
+    name (host self ms and device ms a step; no device time on the
+    CPU)."""
     import re
     from repro_torch.launch import pic_run
     pic_run.main(["--device", "cpu", "--domains", "4", "--async-n", "2",
@@ -658,12 +660,14 @@ def test_pic_run_engine_lines(capsys):
             r"'D/count': \d+\}",
             r"queue balance: \{'e/queue_occ': \[\d+, \d+\], 'e/queue_skew': "
             r"\d+, .*\}",
-            r"per-phase \(us/step\): \{'ingest': [\d.]+, 'field': [\d.]+, "
-            r"'push': [\d.]+, 'collide': [\d.]+, 'migrate': [\d.]+, "
-            r"'merge': [\d.]+, 'diag': [\d.]+\} total=[\d.]+"]
+            r"spans \(ms/step over 2 steps\): host self, device"]
     for pat, line in zip(pats, lines):
         assert re.fullmatch(pat, line), (pat, line)
-    assert all(line.startswith("probe flag: ") for line in lines[len(pats):])
+    spans = [re.fullmatch(r"  ([\w/]+): [\d.]+, -", line).group(1)
+             for line in lines[len(pats):]]
+    assert spans[:2] == ["engine/step", "engine/ingest"]
+    assert {"engine/queue/q1", "engine/ring/q1", "engine/merge",
+            "halo/poisson"} <= set(spans)
     counts = [int(c) for c in re.findall(r"\d+", lines[2].split(":", 1)[1])]
     born = counts[0] - 2048
     assert born == counts[1] - 2048 == 2048 - counts[2] >= 0

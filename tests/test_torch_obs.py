@@ -204,7 +204,8 @@ def test_engine_phase_scopes_equal_the_reference(name, an):
     reference's step enters (its ``capture_scopes`` around
     ``jax.make_jaxpr``) for the same config at D = 1, each as many times:
     every phase, queue stage (push, collide, ionize, migrate, see) and halo
-    collective. Without SEE the order is the reference's too; with it, the
+    collective, once the port-only names (``tracing.PORT_ONLY_SPANS``) are
+    dropped. Without SEE the order is the reference's too; with it, the
     port copies a queue's packs to the neighbours before the queue's SEE
     (which waits for the ring chain), the reference after it."""
     rcfg = _ref_config(name)
@@ -220,8 +221,9 @@ def test_engine_phase_scopes_equal_the_reference(name, an):
                                async_n=an, max_migration=64, max_births=64)
     state = engine.init_engine_state(ecfg, 0, device="cpu")
     step = engine.make_engine_step(ecfg)
-    with tracing.capture_scopes() as got:
+    with tracing.capture_scopes() as entered:
         step(state)
+    got = [n for n in entered if not tracing.port_only(n)]
     assert collections.Counter(got) == collections.Counter(want)
     if name != "resilience":
         assert got == want
@@ -234,7 +236,7 @@ def test_engine_phase_scopes_equal_the_reference(name, an):
 def test_trace_session_writes_the_engine_ranges():
     """A ``trace_session`` around two engine steps writes a Chrome trace
     whose ``user_annotation`` ranges are the scopes the steps entered (and
-    a host span); a None profile dir is a no-op."""
+    one around them); a None profile dir is a no-op."""
     with tracing.trace_session(None):
         pass
     ecfg = engine.EngineConfig(pic=dataclasses.replace(_cfg(),
@@ -247,7 +249,7 @@ def test_trace_session_writes_the_engine_ranges():
         profile_dir = os.path.join(td, "trace")
         with tracing.capture_scopes() as seen:
             with tracing.trace_session(profile_dir):
-                with tracing.host_span("test/host_work"):
+                with tracing.phase_scope("test/host_work"):
                     for _ in range(2):
                         state, _ = step(state)
         files = [os.path.join(profile_dir, f)
@@ -260,6 +262,25 @@ def test_trace_session_writes_the_engine_ranges():
                  "engine/diag", "halo/sum", "halo/poisson", "halo/efield",
                  "halo/ppermute"):
         assert want in names, want
+
+
+def test_port_only_span_names_are_pinned():
+    """The names the port enters and the reference has not: the cycle's
+    phases and the engine's host work between the reference's scopes,
+    any queue index standing for ``q<k>``; no reference name is one."""
+    assert tracing.PORT_ONLY_SPANS == (
+        "cycle/step", "cycle/field", "cycle/push", "cycle/collide",
+        "cycle/see", "cycle/ionize", "cycle/diag",
+        "engine/step", "engine/buffers", "engine/queue/q<k>",
+        "engine/slice/q<k>", "engine/births/q<k>", "engine/ring/q<k>",
+        "engine/join", "engine/release")
+    assert tracing.port_only("engine/queue/q12")
+    assert tracing.port_only("engine/ring/q0")
+    assert not tracing.port_only("engine/queue")
+    for name in ("engine/push/q0", "engine/see/q3", "engine/ingest",
+                 "engine/merge", "engine/diag", "halo/ppermute",
+                 "engine/collide_setup"):
+        assert not tracing.port_only(name), name
 
 
 # ------------------------------------------------------ metrics-toggle parity
