@@ -19,10 +19,12 @@ Phases (any failure raises and ends the run with a non-zero exit):
    paper's §3.3 run (3 species x 16,777,216 slots, 102,401 nodes; the
    deposit also at the births of one ionization step, 2 x 16,777,216 rows;
    the Takizuka-Abe deflection on the within-cell pairs of the 16,777,216
-   electron slots) and at ragged small shapes (every boundary with and
-   without a magnetic field; the deposit kernels' two forms on either side
-   of the grid size that parts them; deflection rows along z and with
-   delta = 0), each deposit checked to launch in the form its grid gives;
+   electron slots, standalone, and the Coulomb pairing kernel that pairs
+   and deflects those slots on the main path) and at ragged small shapes
+   (every boundary with and without a magnetic field; the deposit kernels'
+   two forms on either side of the grid size that parts them; deflection
+   rows along z and with delta = 0; pairs in odd and single cells, one row,
+   no eligible row), each deposit checked to launch in the form its grid gives;
    times by CUDA events (and the deposit kernels' device time behind a spin
    kernel) beside the least time the card allows, also at an engine
    domain's grid (25,601 nodes, the block form) and at 600,001 nodes;
@@ -87,8 +89,8 @@ Phases (any failure raises and ends the run with a non-zero exit):
    trace's stream ids after a calibration with two spin kernels) and
    ``perf.phase_breakdown``; async_n 1 against 4 at D = 4 (ionization
    off: counts and charge equal, KE within 1e-5); the collision menu with
-   ``collide_kernel=True`` at D = 4, async_n 4 (``ta_kick`` once a queue
-   a domain); the queue push and the small deposits timed at D = 4's
+   ``collide_kernel=True`` at D = 4, async_n 4 (``coulomb_pairs`` once a
+   queue a domain); the queue push and the small deposits timed at D = 4's
    shapes; card against CPU on the bench configuration at D = 4, async_n
    2 with the same draws (counts, masks, rings and pending exact, x
    within 1e-5 of the slab, v 1e-4 of max|v|, rho 1e-3); and ``pic_run
@@ -251,6 +253,11 @@ DEPOSIT_FLOPS = 10
 # counted as one), cos/sin of phi 2, the degenerate-frame test 3, du 27
 TA_FLOPS = 47
 TA_BYTES = 32       # u 12, delta 4, phi 4 read; du 12 written
+# a row of the Coulomb pairing kernel: order 8, cell 4, v 12, nrm 4, phi 4
+# read, v 12 written; a head's u, |u| and delta add 16 flops to the
+# deflection's (counted per row, as the deflection's bound counts them)
+PAIR_BYTES = 44
+PAIR_FLOPS = TA_FLOPS + 16
 COLL_KEYS = ("coll_elastic", "coll_cx", "coll_coulomb")
 
 TOL = 2e-5          # x / v / w, as tests/test_kernels.py
@@ -458,31 +465,71 @@ def compare_ta_kick(collide, u, delta, phi):
     return err
 
 
-def main_path_ta_inputs(electrons, cfg):
-    """The rows the collision path hands the deflection kernel: one
-    ``coulomb_intra`` call on ``electrons`` with the menu's Coulomb rate,
-    whose ``ops.ta_kick`` call is recorded and answered by the plain
-    version (no launch is counted)."""
-    from repro_torch.configs.pic_bit1 import make_collision_menu
+def pair_inputs(gen, buf, grid, rate, dt):
+    """The arguments ``coulomb_intra`` hands the Coulomb pairing kernel for
+    the species buffer ``buf``: (order, cell, v, n_cell, nrm, phi, rate,
+    dt), drawn from ``gen`` as it draws them."""
     from repro_torch.core import collisions
-    from repro_torch.kernels import collide, ops
 
-    rate = make_collision_menu(("coulomb",))[0].rate
-    seen = {}
+    ok = collisions._eligible(buf.x, buf.alive, grid.length)
+    cell = collisions._cells(buf.x, ok, grid.dx, grid.nc)
+    order = collisions.cell_shuffled_order(gen, cell, ok)
+    nrm, phi = collisions._coulomb_draws(gen, None, order.shape[0],
+                                         torch.float32, buf.x.device)
+    return (order, cell, buf.v, collisions.cell_density(grid, buf), nrm, phi,
+            rate, dt)
 
-    def record(u, delta, phi):
-        seen.update(u=u, delta=delta, phi=phi)
-        return collide.ta_kick_plain(u, delta, phi)
 
-    gen = torch.Generator(device=electrons.x.device).manual_seed(99)
-    orig, ops.ta_kick = ops.ta_kick, record
-    try:
-        collisions.coulomb_intra(
-            gen, electrons, collisions.cell_density(cfg.grid, electrons),
-            cfg.grid, rate, cfg.dt, use_kernel=True)
-    finally:
-        ops.ta_kick = orig
-    return seen["u"], seen["delta"], seen["phi"]
+def ragged_pair_inputs(gen, dev, rows, nc, alive_share):
+    """``pair_inputs`` of ``rows`` random slots over ``nc`` cells,
+    ``alive_share`` of them alive, with rate and dt as 0-d tensors on the
+    card (the runtime-parameter path)."""
+    from repro_torch.core.grid import Grid1D
+    from repro_torch.core.particles import SpeciesBuffer
+
+    grid = Grid1D(nc=nc, dx=1.0)
+    x = torch.rand(rows, generator=gen, device=dev) * grid.length
+    v = torch.randn(rows, 3, generator=gen, device=dev)
+    alive = torch.rand(rows, generator=gen, device=dev) < alive_share
+    buf = SpeciesBuffer(x=x, v=v, w=alive.float(), alive=alive)
+    return pair_inputs(gen, buf, grid, torch.tensor(1e-2, device=dev),
+                       torch.tensor(0.2, device=dev))
+
+
+def main_path_ta_inputs(pargs):
+    """The deflection's rows on the main path (u, delta, phi), each sorted
+    position's pair, built by the plain composition from the pairing
+    kernel's arguments ``pargs``."""
+    from repro_torch.kernels import collide
+
+    *_, u, delta = collide.coulomb_pair_rows(*pargs[:5], *pargs[6:])
+    return u, delta, pargs[5]
+
+
+def compare_coulomb_pairs(collide, pargs):
+    """Kernel vs plain on the same arguments: the pair count exact, rows
+    outside a pair equal (``==``: the kernel copies a -0.0 that index_add
+    turns into +0.0), paired rows within 2 ulp of the row's largest
+    component. Returns (max |kernel - plain|, pairs, largest gap in ulp)."""
+    got, got_n = collide.coulomb_pairs(*pargs)
+    want, want_n = collide.coulomb_pairs_plain(*pargs)
+    torch.cuda.synchronize()
+    if int(got_n) != int(want_n):
+        raise AssertionError(f"coulomb_pairs: {int(got_n)} pairs, plain "
+                             f"{int(want_n)}")
+    ia, ib, valid, _, _ = collide.coulomb_pair_rows(*pargs[:5], *pargs[6:])
+    paired = torch.zeros(got.shape[0], dtype=torch.bool, device=got.device)
+    paired[ia[valid]] = True
+    paired[ib[valid]] = True
+    check_equal("coulomb_pairs rows outside a pair", got[~paired],
+                want[~paired])
+    top = want[paired].abs().amax(1, keepdim=True)
+    ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+    gap = float(((got[paired] - want[paired]).abs() / ulp).max()) \
+        if int(want_n) else 0.0
+    if not gap <= 2.0:
+        raise AssertionError(f"coulomb_pairs: a paired row {gap} ulp off")
+    return max_err(got, want), int(want_n), gap
 
 
 def deposit_bound(q, ng):
@@ -553,7 +600,7 @@ def timed(what, fn, bms):
 
 
 def kernel_phase(dev):
-    from repro_torch.configs.pic_bit1 import make_config
+    from repro_torch.configs.pic_bit1 import make_collision_menu, make_config
     from repro_torch.core import pic
     from repro_torch.core.particles import SpeciesBuffer, stack_species
     from repro_torch.kernels import collide, deposit, fused_cycle, mover
@@ -622,10 +669,16 @@ def kernel_phase(dev):
     delta[::7] = 0.0
     phi = torch.rand(m, generator=gen, device=dev) * (2 * torch.pi)
     compare_ta_kick(collide, u, delta, phi)
+    for rows, nc, share in ((5001, 37, 0.8), (4096, 1, 1.0), (1, 4, 1.0),
+                            (777, 9, 0.0)):
+        compare_coulomb_pairs(collide, ragged_pair_inputs(gen, dev, rows, nc,
+                                                          share))
     log(f"kernels: ragged shapes (cap 5000, 3 boundaries x b on/off; the "
         f"deposit kernels at 257, 513, {edge} (block, dx = 10 / {edge - 1}) "
         f"and {edge + 1} (pair) nodes; 5000 deflection rows with u along z "
-        f"and delta = 0) agree with their plain versions")
+        f"and delta = 0; Coulomb pairs of 5001 rows in 37 cells, 4096 in "
+        f"one, a single row and 777 dead rows, rate and dt on the card) agree "
+        f"with their plain versions")
 
     # the main path's shapes: the §3.3 initial state, a non-zero field
     cfg = make_config(mover_strategy="fused")
@@ -721,12 +774,28 @@ def kernel_phase(dev):
 
     grid_lines(dev, deposit, fused_cycle, st, cfg, gen)
 
-    # the Coulomb deflection of the collision path: the within-cell pairs
-    # of the §3.3 electrons, one row per slot
+    # the Coulomb operator of the collision path on the §3.3 electrons, one
+    # row per slot: the pairing kernel, and the standalone deflection on
+    # each sorted position's pair
     electrons = SpeciesBuffer(x=st.x[0], v=st.v[0], w=st.w[0],
                               alive=st.alive[0])
-    targs = main_path_ta_inputs(electrons, cfg)
-    rows = targs[0].shape[0]
+    pargs = pair_inputs(torch.Generator(device=dev).manual_seed(99),
+                        electrons, cfg.grid,
+                        make_collision_menu(("coulomb",))[0].rate, cfg.dt)
+    rows = pargs[0].shape[0]
+    err, pairs, gap = compare_coulomb_pairs(collide, pargs)
+    bms, by = bound_ms(rows * PAIR_BYTES, rows * PAIR_FLOPS)
+    results["coulomb_pairs"] = dict(
+        name="coulomb_pairs", route="cuda",
+        source="src/repro_torch/csrc/collide.cu",
+        replaces="src/repro/core/collisions.py pair_in_cells + "
+                 "src/repro/kernels/collide.py:36", max_abs_err=err,
+        ms=median_ms(lambda: collide.coulomb_pairs(*pargs), 20),
+        plain_ms=median_ms(lambda: collide.coulomb_pairs_plain(*pargs), 5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"coulomb_pairs rows: {rows}, {pairs} pairs, paired rows within "
+        f"{gap} ulp of the plain version")
+    targs = main_path_ta_inputs(pargs)
     err = compare_ta_kick(collide, *targs)
     bms, by = bound_ms(rows * TA_BYTES, rows * TA_FLOPS)
     results["ta_kick"] = dict(
@@ -746,7 +815,7 @@ def kernel_phase(dev):
             f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms{extra}, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}){lib}")
-    del st, fargs, margs, electrons, targs
+    del st, fargs, margs, electrons, pargs, targs
     torch.cuda.empty_cache()
     return results
 
@@ -810,14 +879,29 @@ def reset_launches(counters):
                 setattr(fn, attr, 0)
 
 
-def expected(form, fused=0, fused_dep=0, mover=0, deposit=0, ta=0):
+# kernels that no main path launches: phase 2 times them on their own
+STANDALONE = ("ta_kick",)
+
+
+def pic_counters():
+    """The PIC kernels' wrappers by name, whose ``launches`` the phases
+    read."""
+    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+
+    return {"fused_push_deposit": fused_cycle.fused_push_deposit,
+            "mover_push": mover.mover_push, "deposit": deposit.deposit,
+            "ta_kick": collide.ta_kick,
+            "coulomb_pairs": collide.coulomb_pairs}
+
+
+def expected(form, fused=0, fused_dep=0, mover=0, deposit=0, pairs=0):
     """Launches a step: totals, and the deposit kernels' launches by form,
     all of them in ``form`` (fused_dep of the fused kernel's launches carry
     a deposit)."""
     from repro_torch.kernels.deposit import FORMS
 
     out = {"fused_push_deposit": fused, "mover_push": mover,
-           "deposit": deposit, "ta_kick": ta}
+           "deposit": deposit, "ta_kick": 0, "coulomb_pairs": pairs}
     for name, n in (("fused_push_deposit", fused_dep), ("deposit", deposit)):
         for f in FORMS:
             out[f"{name}/{f}"] = n if f == form else 0
@@ -948,11 +1032,9 @@ def run_launcher(argv, counters, label):
 
 def main_path_phase(dev):
     from repro_torch.configs.pic_bit1 import make_config
-    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+    from repro_torch.kernels import deposit
 
-    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
-                "mover_push": mover.mover_push, "deposit": deposit.deposit,
-                "ta_kick": collide.ta_kick}
+    counters = pic_counters()
     ms, paths = {}, {}
     cfg = make_config(mover_strategy="fused")
     # the form of the §3.3 grid; every deposit of every path below must
@@ -970,26 +1052,31 @@ def main_path_phase(dev):
         counters, expected(form, mover=3, deposit=1), dev)
     ms["collisions"], paths["collisions"] = drive(
         collision_config(), 3, "collisions (menu + T-A kernel, field off)",
-        counters, expected(form, fused=1, ta=1), dev)
+        counters, expected(form, fused=1, pairs=1), dev)
     paths["pic_run"] = run_launcher(
         ["--nc", "102400", "--particles", "10485760", "--strategy",
          "fused", "--steps", "3"], counters, "pic_run")
     if paths["pic_run"]["fused_push_deposit"] != 3:
         raise AssertionError("pic_run did not run the fused kernel per step")
     # the reference launcher deflects through ta_kick_ref, and so does the
-    # port's: no ta_kick launch here
+    # port's: no coulomb_pairs launch here
     paths["pic_run_collisions"] = run_launcher(
         ["--nc", "102400", "--particles", "10485760", "--strategy",
          "fused", "--steps", "2", "--collisions", "elastic,cx,coulomb"],
         counters, "pic_run --collisions")
     if (paths["pic_run_collisions"]["fused_push_deposit"] != 2
-            or paths["pic_run_collisions"]["ta_kick"] != 0):
+            or paths["pic_run_collisions"]["coulomb_pairs"] != 0):
         raise AssertionError("pic_run --collisions: unexpected launches "
                              f"{paths['pic_run_collisions']}")
     counts = {name: sum(p[name] for p in paths.values())
               for name in paths["fused"]}
     for name, c in counts.items():
         main = "/" not in name or name.endswith("/" + form)
+        if name in STANDALONE:
+            if c:
+                raise AssertionError(f"{name}: {c} launches on the main "
+                                     f"paths, which no longer run it")
+            continue
         if main and c <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
                                  f"paths")
@@ -1539,9 +1626,9 @@ def engine_launches(ecfg):
     once a queue a domain (with a deposit when rho is carried), the
     deposit kernel for the electron density once a domain (ionization
     on), for the leavers once a queue a domain and for the merged rows
-    once a domain (rho carried), and the deflection kernel once a queue a
-    domain a Coulomb entry (with ``collide_kernel``); every deposit in the
-    form of a domain's grid."""
+    once a domain (rho carried), and the Coulomb pairing kernel once a
+    queue a domain a Coulomb entry (with ``collide_kernel``); every deposit
+    in the form of a domain's grid."""
     from repro_torch.distributed import engine
     from repro_torch.kernels.deposit import deposit_form
 
@@ -1554,7 +1641,7 @@ def engine_launches(ecfg):
     coulomb = sum(cc.kind == "coulomb" for cc in cfg.collisions)
     return expected(deposit_form(ecfg.local_nc() + 1), fused=queues,
                     fused_dep=queues if carried else 0, deposit=dep,
-                    ta=queues * coulomb if cfg.collide_kernel else 0)
+                    pairs=queues * coulomb if cfg.collide_kernel else 0)
 
 
 def resident_counts(state):
@@ -1923,12 +2010,9 @@ def engine_phase(dev):
     """The multi-domain engine at the §3.3 configuration and beside it;
     returns (launches summed over the engine's paths, numbers)."""
     from repro_torch.distributed import engine, perf
-    from repro_torch.kernels import collide, deposit, fused_cycle, mover
 
     t0 = time.perf_counter()
-    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
-                "mover_push": mover.mover_push, "deposit": deposit.deposit,
-                "ta_kick": collide.ta_kick}
+    counters = pic_counters()
     paths, numbers = {}, {}
     numbers["calibration_overlap_ms"] = trace_calibration()
     for d, n_q in ENGINE_RUNS:
@@ -1987,7 +2071,7 @@ def engine_phase(dev):
     paths["pic_run"] = engine_launcher(counters)
     counts = {name: sum(p[name] for p in paths.values())
               for name in paths[f"D{ENGINE_RUNS[0][0]}xq1"]}
-    for name in ("fused_push_deposit", "deposit", "ta_kick",
+    for name in ("fused_push_deposit", "deposit", "coulomb_pairs",
                  "fused_push_deposit/block", "fused_push_deposit/pair",
                  "deposit/block", "deposit/pair"):
         if counts[name] <= 0:
@@ -2585,14 +2669,11 @@ def obs_phase(dev):
     bitwise configuration; returns (launches summed over its paths,
     numbers)."""
     from repro_torch.distributed import engine
-    from repro_torch.kernels import collide, deposit, fused_cycle, mover
     from repro_torch.obs import metrics, tracing
     from repro_torch.obs.autotune import AutoTuner, TunerPolicy
 
     t_start = time.perf_counter()
-    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
-                "mover_push": mover.mover_push, "deposit": deposit.deposit,
-                "ta_kick": collide.ta_kick}
+    counters = pic_counters()
     shutil.rmtree(OBS_DIR, ignore_errors=True)
     OBS_DIR.mkdir(parents=True)
     full = engine_config(4, 4)
@@ -2757,7 +2838,8 @@ SERVE_LINE = re.compile(r"session s(\d+): slot=(\d+) steps=(\d+) "
                         r"ke=\{'D\+/ke': \S+, 'D/ke': \S+, 'e/ke': \S+\}")
 SERVE_LAST = re.compile(r"(\d+) sessions x (\d+) steps, width=(\d+): "
                         r"[\d.]+s — stats (\{.*\})")
-PIC_KERNELS = ("fused_push_deposit", "mover_push", "deposit", "ta_kick")
+PIC_KERNELS = ("fused_push_deposit", "mover_push", "deposit", "ta_kick",
+               "coulomb_pairs")
 SERVE_ARGV = ["--ensemble", "8", "--steps", "5", "--strategy", "fused"]
 
 
@@ -2877,7 +2959,7 @@ def collision_serve(dev, counters):
     from repro_torch.serve import SimService
 
     cfg = collision_config()
-    solo = expected(deposit_form(cfg.nc + 1), fused=1, ta=1)
+    solo = expected(deposit_form(cfg.nc + 1), fused=1, pairs=1)
     reset_launches(counters)
     svc = SimService(cfg, width=2, device=dev)
     base = tuple(cc.rate for cc in cfg.collisions)
@@ -3163,12 +3245,10 @@ def serve_phase(dev, solo_ms):
     """Phase 12: runtime parameters and the serving layer on the card;
     returns (launches summed over its paths, numbers)."""
     from repro_torch.configs.pic_bit1 import make_config
-    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+    from repro_torch.kernels import deposit
 
     t_start = time.perf_counter()
-    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
-                "mover_push": mover.mover_push, "deposit": deposit.deposit,
-                "ta_kick": collide.ta_kick}
+    counters = pic_counters()
     cfg = make_config(mover_strategy="fused")
     solo = expected(deposit.deposit_form(cfg.nc + 1), fused=1, deposit=1)
     paths, numbers = serve_section(dev, cfg, solo, solo_ms, counters)
@@ -3180,7 +3260,7 @@ def serve_phase(dev, solo_ms):
     counts = {name: sum(p[name] for p in paths.values())
               for name in PIC_KERNELS}
     # the mover kernel serves 'explicit' only, which refuses params
-    for name in ("fused_push_deposit", "deposit", "ta_kick"):
+    for name in ("fused_push_deposit", "deposit", "coulomb_pairs"):
         if counts[name] <= 0:
             raise AssertionError(f"phase 12: {name} never launched")
     numbers["seconds"] = time.perf_counter() - t_start
@@ -4331,11 +4411,7 @@ def mesh_dryrun(dev, counters):
 
 def mesh_phase(dev):
     """Phase 15. Returns (launches by kernel, numbers)."""
-    from repro_torch.kernels import collide, deposit, fused_cycle, mover
-
-    counters = {"fused_push_deposit": fused_cycle.fused_push_deposit,
-                "mover_push": mover.mover_push, "deposit": deposit.deposit,
-                "ta_kick": collide.ta_kick}
+    counters = pic_counters()
     t0 = time.perf_counter()
     marks = [t0]
     flash, nums = mesh_train(dev)

@@ -19,9 +19,9 @@ machinery ``cell_shuffled_order`` / ``pair_in_cells`` /
   random neutral of its own cell (equal masses, so momentum and energy are
   exchanged exactly);
 * ``coulomb_intra``: every within-cell pair deflects its relative velocity
-  through a Takizuka-Abe angle (``ta_kick_ref``, or the CUDA kernel through
-  ``kernels.ops.ta_kick``); the half-kicks v1 += du/2, v2 -= du/2 keep the
-  pair's momentum exactly.
+  through a Takizuka-Abe angle (``ta_kick_ref``, or pairing and deflection
+  in one CUDA kernel through ``kernels.ops.coulomb_pairs``); the half-kicks
+  v1 += du/2, v2 -= du/2 keep the pair's momentum exactly.
 
 Every draw is indexed by occupancy rank: the k-th eligible row reads the
 k-th element of a full-length stream, so a stable reorder of the buffer
@@ -422,6 +422,18 @@ def ta_kick_ref(u: torch.Tensor, delta: torch.Tensor,
                         torch.where(safe, duz, duz0)], dim=-1)
 
 
+def _coulomb_draws(gen: torch.Generator, draws: dict | None, m: int,
+                   dtype: torch.dtype, device: torch.device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nrm, phi) of ``coulomb_intra``, in that order: a standard normal
+    (m,) and an azimuth (m,) in [0, 2 pi)."""
+    if draws is None:
+        nrm = torch.randn(m, generator=gen, dtype=dtype, device=device)
+    else:
+        nrm = torch.as_tensor(draws["normal"], dtype=dtype, device=device)
+    return nrm, _draw(draws, "phi", gen, m, device, 0.0, 2.0 * math.pi)
+
+
 def coulomb_intra(gen: torch.Generator, sp: SpeciesBuffer,
                   n_cell: torch.Tensor, grid: Grid1D, rate: float, dt: float,
                   use_kernel: bool = False, draws: dict | None = None
@@ -430,13 +442,23 @@ def coulomb_intra(gen: torch.Generator, sp: SpeciesBuffer,
 
     Every eligible within-cell pair (``pair_in_cells``) deflects its
     relative velocity u by tan(theta/2) ~ N(0, rate n_cell dt / |u|^3);
-    v1 += du/2, v2 -= du/2. ``use_kernel`` deflects through
-    ``kernels.ops.ta_kick`` (the CUDA kernel on the card), else through
-    ``ta_kick_ref``. ``draws``: ``"shuffle"`` (cap,), ``"normal"`` (cap,),
-    ``"phi"`` (cap,) in [0, 2 pi). Returns (buffer, n_pairs)."""
+    v1 += du/2, v2 -= du/2. ``use_kernel`` pairs and deflects the rows of
+    ``cell_shuffled_order`` through ``kernels.ops.coulomb_pairs`` (one CUDA
+    kernel on the card), else through ``pair_in_cells`` and
+    ``ta_kick_ref``; the draws are the same either way. ``draws``:
+    ``"shuffle"`` (cap,), ``"normal"`` (cap,), ``"phi"`` (cap,) in
+    [0, 2 pi). Returns (buffer, n_pairs)."""
     dtype = sp.x.dtype
     ok = _eligible(sp.x, sp.alive, grid.length)
     c = _cells(sp.x, ok, grid.dx, grid.nc)
+    if use_kernel:
+        from repro_torch.kernels import ops
+        order = cell_shuffled_order(gen, c, ok, draws)
+        nrm, phi = _coulomb_draws(gen, draws, order.shape[0], dtype,
+                                  sp.x.device)
+        v, n_pairs = ops.coulomb_pairs(order, c, sp.v, n_cell.to(dtype), nrm,
+                                       phi, rate, dt)
+        return dataclasses.replace(sp, v=v), n_pairs
     ia, ib, valid = pair_in_cells(gen, c, ok, draws)
     m = ia.shape[0]
 
@@ -444,19 +466,9 @@ def coulomb_intra(gen: torch.Generator, sp: SpeciesBuffer,
     umag = torch.sqrt(torch.sum(u * u, dim=-1))
     n_at = _at_cell(n_cell, c[ia]).to(dtype)   # both rows share the cell
     var = rate * n_at * dt / torch.clamp(umag * umag * umag, min=1e-12)
-    if draws is None:
-        nrm = torch.randn(m, generator=gen, dtype=dtype, device=sp.x.device)
-    else:
-        nrm = torch.as_tensor(draws["normal"], dtype=dtype,
-                              device=sp.x.device)
+    nrm, phi = _coulomb_draws(gen, draws, m, dtype, sp.x.device)
     delta = torch.sqrt(var) * nrm
-    phi = _draw(draws, "phi", gen, m, sp.x.device, 0.0, 2.0 * math.pi)
-    if use_kernel:
-        from repro_torch.kernels import ops
-        du = ops.ta_kick(u, delta, phi)
-    else:
-        du = ta_kick_ref(u, delta, phi)
-    du = torch.where(valid[:, None], du, 0.0)
+    du = torch.where(valid[:, None], ta_kick_ref(u, delta, phi), 0.0)
     v = sp.v.index_add(0, ia, 0.5 * du).index_add(0, ib, -0.5 * du)
     return dataclasses.replace(sp, v=v), valid.sum(dtype=torch.int32)
 

@@ -75,7 +75,7 @@ class PICConfig:
     emission_vth: float = 1.0
     emission_weight: float = 1.0       # macro-weight of emitted secondaries
     # binary-collision menu, run right after the push; collide_kernel
-    # deflects the Coulomb pairs through kernels.ops.ta_kick
+    # pairs and deflects the Coulomb rows through kernels.ops.coulomb_pairs
     collisions: tuple[collisions.CollisionConfig, ...] = ()
     collide_kernel: bool = False
     # full-buffer diagnostics every k-th step; off-steps report zeros

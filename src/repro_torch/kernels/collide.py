@@ -1,22 +1,48 @@
-"""The Takizuka-Abe deflection kernel (``csrc/collide.cu``) and its plain
-PyTorch version.
+"""The Takizuka-Abe deflection kernel and the Coulomb pairing kernel
+(``csrc/collide.cu``), each with its plain PyTorch version.
 
-Replaces the TPU kernel ``src/repro/kernels/collide.py::_ta_kernel``
-(launched by ``ta_kick_pallas``): from each pair's relative velocity u
-(M, 3), delta = tan(theta/2) (M,) and azimuth phi (M,), the deflection
-du = u' - u (M, 3) with |u + du| = |u|; u along z takes the degenerate-frame
-branch, and delta = 0 gives du = 0 exactly. It serves
-``collisions.coulomb_intra(use_kernel=True)`` (``PICConfig.collide_kernel``).
+``ta_kick`` replaces the TPU kernel
+``src/repro/kernels/collide.py::_ta_kernel`` (launched by
+``ta_kick_pallas``): from each pair's relative velocity u (M, 3),
+delta = tan(theta/2) (M,) and azimuth phi (M,), the deflection du = u' - u
+(M, 3) with |u + du| = |u|; u along z takes the degenerate-frame branch,
+and delta = 0 gives du = 0 exactly. Bound on the H100: bytes, 32 B a row
+(u 12, delta 4, phi 4, du 12): at the §3.3 electron capacity of 16,777,216
+rows, 0.160 ms at 3.35 TB/s. One thread per row on the (M, 3) layout; the
+TPU's (rows, 128) planes are not built. It stands alone: the main path
+deflects inside ``coulomb_pairs``.
 
-Bound on the H100: bytes, 32 B a row (u 12, delta 4, phi 4, du 12): at the
-§3.3 electron capacity of 16,777,216 rows, 0.160 ms at 3.35 TB/s. One
-thread per row on the (M, 3) layout; the TPU's (rows, 128) planes are not
-built.
+``coulomb_pairs`` is ``collisions.coulomb_intra(use_kernel=True)`` after the
+cell-shuffled order (``PICConfig.collide_kernel``): it replaces the scan of
+the reference's ``pair_in_cells`` (the segment starts, a ``cummax`` over
+all rows, which PyTorch runs in one block) folded together with
+``_ta_kernel``'s deflection, and the gathers, the ``where`` and the two
+``index_add`` passes between them. Bound on the H100: bytes, 44 B a row
+(order 8, cell 4, v 12, nrm 4, phi 4 read; v 12 written): 0.22 ms at
+16,777,216 rows and 3.35 TB/s; the rows of v are gathered and written in
+shuffled order, so each touches its own 32-byte sectors. Design: two
+passes of one thread a sorted position t. The first gathers the cell key
+cs[t], writes first[c] = t where a cell's segment starts (each entry by
+the one position that starts it, so no scan and no atomics) and copies
+the ineligible rows by slot, in order. The second makes t a head where
+``pair_in_cells``' ``valid`` is (even offset t - first[cs[t]], successor
+in the same cell, cell != nc); a head reads both rows, deflects them
+through ``_ta_kernel``'s body and writes both rows, a partner (odd
+offset) writes nothing, and the last row of an odd segment is copied: the
+pairs are disjoint, so each output row is written once and no (n, 3)
+intermediate exists. Pairs are counted by a block count and one
+integer atomic a block. ``rate`` and ``dt`` are Python numbers or 0-d
+float32 tensors on the card (``RuntimeParams``), read by the kernel, never
+by the host.
 
-``ta_kick_plain`` repeats the kernel's arithmetic operation by operation
-(it multiplies by 1/(1+delta^2) where ``collisions.ta_kick_ref`` divides);
-the two are distinct on purpose, as the reference keeps its kernel and its
-``ta_kick_ref`` apart.
+The plain versions repeat the kernels' arithmetic operation by operation
+(``ta_kick_plain`` multiplies by 1/(1+delta^2) where
+``collisions.ta_kick_ref`` divides; the two are distinct on purpose, as the
+reference keeps its kernel and its ``ta_kick_ref`` apart).
+``coulomb_pairs_plain`` is the composition the kernel replaced; against it
+the kernel differs only where a row outside a pair holds -0.0, which
+``index_add`` turns into +0.0 and the kernel copies, and in the order of
+``torch.sum`` over the three squares of |u| (see ``csrc/collide.cu``).
 """
 
 from __future__ import annotations
@@ -28,7 +54,10 @@ import torch
 from repro_torch.kernels import _build
 
 _P = ctypes.c_void_p
+_F = ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, ctypes.c_longlong, _P]
+_PAIR_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _F, _P, _F, _P, _P, _P, _P,
+                  ctypes.c_longlong, ctypes.c_int, _P]
 
 
 def ta_kick_plain(u: torch.Tensor, delta: torch.Tensor,
@@ -79,3 +108,87 @@ def ta_kick(u: torch.Tensor, delta: torch.Tensor,
 
 
 ta_kick.launches = 0
+
+
+def coulomb_pair_rows(order: torch.Tensor, cell: torch.Tensor,
+                      v: torch.Tensor, n_cell: torch.Tensor,
+                      nrm: torch.Tensor, rate, dt):
+    """``pair_in_cells``' head rule on a given cell-shuffled ``order`` and
+    each position's deflection input: (ia, ib, valid, u, delta), each
+    indexed by sorted position. ``cell`` (n,) int32 parks ineligible rows at
+    nc = ``n_cell.shape[0]``."""
+    n, nc = order.shape[0], n_cell.shape[0]
+    ok = cell != nc
+    cs = cell[order]
+    idx = torch.arange(n, device=cell.device)
+    boundary = torch.ones(n, dtype=torch.bool, device=cell.device)
+    boundary[1:] = cs[1:] != cs[:-1]
+    seg_start = torch.cummax(torch.where(boundary, idx, 0), 0).values
+    local = idx - seg_start
+    succ = torch.clamp(idx + 1, max=n - 1)
+    ia, ib = order, order[succ]
+    valid = ((local % 2 == 0) & (idx + 1 < n) & (cs[succ] == cs)
+             & ok[ia] & ok[ib])
+    u = v[ia] - v[ib]
+    umag = torch.sqrt(torch.sum(u * u, dim=-1))
+    n_at = torch.cat([n_cell, n_cell.new_zeros(1)])[cs.long()].to(v.dtype)
+    var = rate * n_at * dt / torch.clamp(umag * umag * umag, min=1e-12)
+    return ia, ib, valid, u, torch.sqrt(var) * nrm
+
+
+def coulomb_pairs_plain(order: torch.Tensor, cell: torch.Tensor,
+                        v: torch.Tensor, n_cell: torch.Tensor,
+                        nrm: torch.Tensor, phi: torch.Tensor, rate, dt
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: the within-cell pairs of ``order`` deflected through
+    ``ta_kick_plain`` with the draws ``nrm`` and ``phi`` (n,), read at each
+    head's sorted position. Returns (new v (n, 3), pair count () int32)."""
+    ia, ib, valid, u, delta = coulomb_pair_rows(order, cell, v, n_cell, nrm,
+                                                rate, dt)
+    du = torch.where(valid[:, None], ta_kick_plain(u, delta, phi), 0.0)
+    out = v.index_add(0, ia, 0.5 * du).index_add(0, ib, -0.5 * du)
+    return out, valid.sum(dtype=torch.int32)
+
+
+def _scalar(a, name: str, device: torch.device):
+    """(pointer, value) of a kernel scalar: a 0-d float32 tensor on the
+    card is passed by pointer, a Python number by value."""
+    if isinstance(a, torch.Tensor):
+        _build.require(a, name, torch.float32, (), device)
+        return a.data_ptr(), 0.0
+    return None, float(a)
+
+
+def coulomb_pairs(order: torch.Tensor, cell: torch.Tensor, v: torch.Tensor,
+                  n_cell: torch.Tensor, nrm: torch.Tensor, phi: torch.Tensor,
+                  rate, dt) -> tuple[torch.Tensor, torch.Tensor]:
+    """CUDA kernel: same arguments and result as ``coulomb_pairs_plain``.
+    ``order`` must be a permutation of the rows (every row is written
+    through it)."""
+    _build.require_cuda(v, "coulomb_pairs")
+    n, nc, dev = v.shape[0], n_cell.shape[0], v.device
+    _build.require(order, "order", torch.int64, (n,), dev)
+    _build.require(cell, "cell", torch.int32, (n,), dev)
+    _build.require(v, "v", torch.float32, (n, 3), dev)
+    _build.require(n_cell, "n_cell", torch.float32, (nc,), dev)
+    _build.require(nrm, "nrm", torch.float32, (n,), dev)
+    _build.require(phi, "phi", torch.float32, (n,), dev)
+    rate_p, rate_v = _scalar(rate, "rate", dev)
+    dt_p, dt_v = _scalar(dt, "dt", dev)
+    out = torch.empty_like(v)
+    if n == 0:
+        return out, torch.zeros((), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    cs = torch.empty(n, dtype=torch.int32, device=dev)
+    first = torch.empty(nc, dtype=torch.int64, device=dev)
+    fn = _build.function("collide", "coulomb_pairs", _PAIR_ARGTYPES)
+    err = fn(order.data_ptr(), cell.data_ptr(), v.data_ptr(),
+             n_cell.data_ptr(), nrm.data_ptr(), phi.data_ptr(), rate_p, rate_v,
+             dt_p, dt_v, out.data_ptr(), cs.data_ptr(), first.data_ptr(),
+             count.data_ptr(), n, nc, _build.stream_of(v))
+    coulomb_pairs.launches += 1
+    _build.check_launch(err, "coulomb_pairs")
+    return out, count
+
+
+coulomb_pairs.launches = 0

@@ -78,6 +78,19 @@ def ta_kick(u: torch.Tensor, delta: torch.Tensor,
     return fn(u, delta, phi)
 
 
+def coulomb_pairs(order: torch.Tensor, cell: torch.Tensor, v: torch.Tensor,
+                  n_cell: torch.Tensor, nrm: torch.Tensor, phi: torch.Tensor,
+                  rate, dt) -> tuple[torch.Tensor, torch.Tensor]:
+    """Takizuka-Abe Coulomb pairs of a cell-shuffled ``order`` (n,): rows
+    at even offsets of their cell's segment pair with their successor,
+    deflect by tan(theta/2) = sqrt(rate n_cell dt / |u|^3) ``nrm`` about
+    azimuth ``phi``, and take half the kick each. ``cell`` (n,) int32 parks
+    ineligible rows at nc = len(``n_cell``). Returns (v (n, 3), n_pairs)."""
+    fn = (_collide.coulomb_pairs if _on_card(v)
+          else _collide.coulomb_pairs_plain)
+    return fn(order, cell, v, n_cell, nrm, phi, rate, dt)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Masked online-softmax attention, the function of the reference's

@@ -419,3 +419,96 @@ def test_coulomb_kernel_path_matches_ta_kick_ref_path():
                             5e-3, 1.0, use_kernel=k) for k in (False, True)]
     assert int(outs[0][1]) == int(outs[1][1]) > 0
     np.testing.assert_allclose(n(outs[0][0].v), n(outs[1][0].v), atol=1e-5)
+
+
+# ------------------------------------------- the Coulomb pairing kernel
+
+
+def _coulomb_composed(gen, sp, n_cell, grid, rate, dt, draws=None):
+    """``coulomb_intra(use_kernel=True)`` as it was composed before the
+    pairing kernel: ``pair_in_cells``, the deflection's plain version, a
+    ``where`` and two ``index_add`` passes."""
+    from repro_torch.kernels import collide as K
+
+    ok = C._eligible(sp.x, sp.alive, grid.length)
+    c = C._cells(sp.x, ok, grid.dx, grid.nc)
+    ia, ib, valid = C.pair_in_cells(gen, c, ok, draws)
+    m = ia.shape[0]
+    u = sp.v[ia] - sp.v[ib]
+    umag = torch.sqrt(torch.sum(u * u, dim=-1))
+    n_at = C._at_cell(n_cell, c[ia]).to(sp.x.dtype)
+    var = rate * n_at * dt / torch.clamp(umag * umag * umag, min=1e-12)
+    if draws is None:
+        nrm = torch.randn(m, generator=gen, dtype=sp.x.dtype)
+    else:
+        nrm = torch.as_tensor(draws["normal"], dtype=sp.x.dtype)
+    delta = torch.sqrt(var) * nrm
+    phi = C._draw(draws, "phi", gen, m, sp.x.device, 0.0, 2.0 * np.pi)
+    du = torch.where(valid[:, None], K.ta_kick_plain(u, delta, phi), 0.0)
+    v = sp.v.index_add(0, ia, 0.5 * du).index_add(0, ib, -0.5 * du)
+    return v, valid.sum(dtype=torch.int32)
+
+
+def _coulomb_case(case):
+    """(buffer, grid, rate, draws) of one pairing case."""
+    nc = {"even_nc": 16, "odd_nc": 17, "empty_cells": 200, "n1": 4}.get(
+        case, 16)
+    cap = {"empty_cells": 60, "n1": 1, "odd_nc": 3001}.get(case, 2048)
+    g = Grid1D(nc=nc, dx=1.0)
+    rng = np.random.default_rng(len(case))
+    x = rng.uniform(0, g.length, cap).astype(np.float32)
+    if case == "empty_cells":
+        x = rng.uniform(0, 20.0, cap).astype(np.float32)   # cells 20+ empty
+    v = rng.normal(size=(cap, 3)).astype(np.float32)
+    if case == "u_along_z":
+        v[:, :2] = 0.25        # every pair's u = (0, 0, +-uz)
+    alive = rng.random(cap) < 0.8
+    if case == "all_ineligible":
+        alive[:] = False
+    if case == "n1":
+        alive[:] = True
+    sp = particles.SpeciesBuffer(t(x), t(v), t(alive.astype(np.float32)),
+                                 t(alive))
+    rate = 0.0 if case == "delta_zero" else 5e-3
+    if case == "rate_tensor":
+        rate = torch.tensor(5e-3)
+    draws = None
+    if case == "draws":
+        draws = {"shuffle": rng.random(cap).astype(np.float32),
+                 "normal": rng.normal(size=cap).astype(np.float32),
+                 "phi": (2 * np.pi * rng.random(cap)).astype(np.float32)}
+    return sp, g, rate, draws
+
+
+@pytest.mark.parametrize("case", [
+    "even_nc", "odd_nc", "empty_cells", "all_ineligible", "n1", "u_along_z",
+    "delta_zero", "rate_tensor", "draws"])
+def test_coulomb_pairs_plain_equals_the_composition_it_replaced(case):
+    """The kernel's plain version, through ``coulomb_intra(use_kernel=
+    True)`` and called on its own, gives the composed path's velocities and
+    pair count bit for bit, and draws the same generator stream."""
+    from repro_torch.kernels import collide as K
+
+    sp, g, rate, draws = _coulomb_case(case)
+    nd = C.cell_density(g, sp)
+    gens = [torch.Generator().manual_seed(9) for _ in range(3)]
+    want_v, want_n = _coulomb_composed(gens[0], sp, nd, g, rate, 1.0, draws)
+    got, got_n = C.coulomb_intra(gens[1], sp, nd, g, rate, 1.0,
+                                 use_kernel=True, draws=draws)
+    assert torch.equal(got.v, want_v)
+    assert got_n.dtype == torch.int32 and int(got_n) == int(want_n)
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+    ok = C._eligible(sp.x, sp.alive, g.length)
+    c = C._cells(sp.x, ok, g.dx, g.nc)
+    order = C.cell_shuffled_order(gens[2], c, ok, draws)
+    nrm, phi = C._coulomb_draws(gens[2], draws, sp.x.shape[0], torch.float32,
+                                sp.x.device)
+    v2, n2 = K.coulomb_pairs_plain(order, c, sp.v, nd, nrm, phi, rate, 1.0)
+    assert torch.equal(v2, want_v) and int(n2) == int(want_n)
+    if case in ("all_ineligible", "n1"):
+        assert int(want_n) == 0
+    elif case == "delta_zero":
+        assert int(want_n) > 0 and torch.equal(want_v, sp.v + 0.0)
+    else:
+        assert int(want_n) > 0 and not torch.equal(want_v, sp.v)
