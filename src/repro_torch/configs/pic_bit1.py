@@ -5,7 +5,8 @@ Scenario: unbounded unmagnetized plasma of (e-, D+, D); electron-impact
 ionization depletes neutrals, dn/dt = -n n_e R. One-dimensional grid of
 ~100K cells, three species, ~10M macro-particles per species (30M total),
 field solver and smoother disabled (the paper's test); mover + MC
-ionization dominate.
+ionization dominate. ``make_wall_config`` is the same plasma between
+grounded absorbing walls with the field on and secondary electron emission.
 """
 
 from __future__ import annotations
@@ -75,6 +76,62 @@ def make_see_config(nc: int = 4096, n: int = 262_144,
         cfg, boundary="absorb", wall_emission=((0, 0),),
         emission_yield=emission_yield, emission_vth=0.5,
         emission_weight=emission_weight)
+
+
+# eps0 of the wall deployment (``make_wall_config``): the §3.3 electron
+# density, 102.4 a cell of dx 1 at weight 1, over eps0 = 100 gives
+# omega_pe = sqrt(1.024) = 1.012, so omega_pe dt = 0.2024 at dt 0.2 and
+# lambda_De = vth / omega_pe = 0.988 dx: the explicit-PIC accuracy rules
+# omega_pe dt ~ 0.2 and dx ~ lambda_De (Birdsall & Langdon, ch. 4 and 8).
+# eps0 and not the weight changes: the weights set the MC rates.
+WALL_EPS0 = 100.0
+
+
+def make_wall_config(nc: int = NC_GLOBAL, n: int = N_PER_SPECIES, *,
+                     strategy: str = "fused", emission_yield: float = 0.5,
+                     diag_every: int = 1) -> pic.PICConfig:
+    """The §3.3 plasma between grounded absorbing walls (phi = 0 at x = 0
+    and x = L) with the field on: every particle that reaches a wall is
+    absorbed there, and each absorbed electron re-emits a secondary
+    electron from the wall with probability ``emission_yield`` (vth 0.5,
+    weight 1; ``make_see_config``'s). Ionization and collisions are off.
+    The sizes are the published ones (``make_config``) unless ``nc`` and
+    ``n`` cut them; each species has ceil(1.6 n) slots, ``CAPACITY`` at
+    the published n."""
+    cap = -(-8 * n // 5)
+    species = (
+        pic.SpeciesConfig("e", -1.0, 1.0, cap, n, vth=1.0),
+        pic.SpeciesConfig("D+", 1.0, 3672.0, cap, n, vth=0.016),
+        pic.SpeciesConfig("D", 0.0, 3672.0, cap, n, vth=0.016),
+    )
+    return pic.PICConfig(
+        nc=nc, dx=1.0, dt=0.2, species=species, field_solve=True,
+        smoothing_passes=1, boundary="absorb", strategy=strategy,
+        eps0=WALL_EPS0, wall_emission=((0, 0),),
+        emission_yield=emission_yield, emission_vth=0.5,
+        emission_weight=1.0, diag_every=diag_every,
+    )
+
+
+def wall_state(cfg: pic.PICConfig, seed: int = 0,
+               device="cuda") -> pic.PICState:
+    """The wall deployment's initial state: ``pic.init_state``'s with the
+    ions (D+, species 1) moved onto the electrons' (species 0) positions,
+    a quasi-neutral load. Positions drawn apart leave a charge noise whose
+    long-wavelength field holds ~28x the electrons' thermal energy at the
+    published size (E rms ~9 at eps0 100), so the run would begin with a
+    noise-driven oscillation; the paired load starts the field from zero
+    and the walls' sheath from the thermal flux."""
+    state = pic.init_state(cfg, seed, device)
+    ele, ion = state.species[0], state.species[1]
+    if (ele.capacity, cfg.species[0].n_init) != (ion.capacity,
+                                                 cfg.species[1].n_init):
+        raise ValueError("a quasi-neutral load needs as many electrons as "
+                         "ions, in buffers of one capacity")
+    species = (ele, dataclasses.replace(ion, x=ele.x.clone()),
+               *state.species[2:])
+    rho = pic.compute_rho(cfg, species) if state.rho is not None else None
+    return dataclasses.replace(state, species=species, rho=rho)
 
 
 def make_resilience_config(nc: int = 64, n: int = 1024,

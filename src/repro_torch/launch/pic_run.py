@@ -6,7 +6,8 @@ multi-domain.
         [--domains 4] [--async-n 2] [--rebalance-every K] \
         [--rebalance-skew T] [--cell-order] [--max-births N] \
         [--strategy unified|explicit|async_batched|fused] \
-        [--field-solve] [--see-yield Y] [--collisions elastic,cx,coulomb] \
+        [--scenario bench|wall] [--field-solve] [--see-yield Y] \
+        [--collisions elastic,cx,coulomb] \
         [--diag-every K] [--phases] [--device cuda|cpu] \
         [--profile-dir DIR] [--metrics-jsonl FILE] [--autotune] \
         [--ckpt-dir DIR --ckpt-every K] [--resume] [--fail-at-step N] \
@@ -14,7 +15,12 @@ multi-domain.
 
 The scenario is ``configs/pic_bit1.make_bench_config(nc, particles)``
 (buffers hold twice the initial particles); --see-yield Y switches the walls
-to absorbing and re-emits secondary electrons with yield Y; --collisions
+to absorbing and re-emits secondary electrons with yield Y. --scenario wall
+is ``make_wall_config(nc, particles)`` instead: the field on at eps0 100
+between grounded absorbing walls, SEE at yield 0.5 (or --see-yield Y),
+ionization off, the ions loaded at the electrons' positions
+(``wall_state``); it runs the single-domain cycle (the published scale:
+--nc 102400 --particles 10485760 --strategy fused). --collisions
 adds the binary-collision menu (the deflection through ``ta_kick_ref``, as
 the reference launcher leaves ``collide_kernel`` off). It runs on the CUDA
 device unless --device cpu is given, and stops with an error when no card
@@ -65,6 +71,12 @@ import os
 import time
 
 
+# the cycle's diagnostics that count particles absorbed at, and emitted
+# from, the walls
+WALL_KEYS = ("/absorbed_left", "/absorbed_right", "/emitted",
+             "/emission_dropped")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=100)
@@ -89,6 +101,11 @@ def main(argv=None) -> None:
     ap.add_argument("--strategy", default="unified",
                     choices=["unified", "explicit", "async_batched",
                              "fused"])
+    ap.add_argument("--scenario", default="bench",
+                    choices=["bench", "wall"],
+                    help="'bench': the §3.3 ionization test; 'wall': the "
+                         "§3.3 plasma between grounded absorbing walls, "
+                         "field on, with secondary electron emission")
     ap.add_argument("--field-solve", action="store_true",
                     help="enable the field phase (the paper's benchmark "
                          "scenario disables it)")
@@ -133,12 +150,19 @@ def main(argv=None) -> None:
                          "drill; restart the command with --resume)")
     args = ap.parse_args(argv)
     resilient = bool(args.ckpt_dir) or args.fail_at_step >= 0
+    want_stream = bool(args.metrics_jsonl or args.autotune)
+    engine_path = (args.domains != 1 or args.async_n != 1
+                   or args.rebalance_every != 0 or args.rebalance_skew != 0
+                   or args.cell_order or want_stream or resilient)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
     if args.autotune and resilient:
         ap.error("--autotune cannot be combined with the checkpoint flags "
                  "(the knob retunes would change the state's layout "
                  "mid-run)")
+    if args.scenario == "wall" and (engine_path or args.ensemble):
+        ap.error("--scenario wall runs the single-domain cycle; it excludes "
+                 "the engine, checkpoint, auto-tuner and ensemble flags")
     if args.ensemble and (args.domains > 1 or args.async_n > 1 or resilient
                           or args.autotune):
         ap.error("--ensemble is the single-device serving demo; it excludes "
@@ -150,13 +174,19 @@ def main(argv=None) -> None:
     from repro_torch.configs.pic_bit1 import (make_bench_config,
                                               make_collision_menu,
                                               make_engine_config,
-                                              make_see_config)
+                                              make_see_config,
+                                              make_wall_config, wall_state)
     from repro_torch.core import pic
     from repro_torch.distributed import engine
     from repro_torch.obs import MetricsStream, tracing
     from repro_torch.obs.metrics import host_values
 
-    if args.see_yield > 0.0:
+    if args.scenario == "wall":
+        cfg = make_wall_config(nc=args.nc, n=args.particles,
+                               strategy=args.strategy,
+                               emission_yield=args.see_yield or 0.5,
+                               diag_every=args.diag_every)
+    elif args.see_yield > 0.0:
         cfg = make_see_config(nc=args.nc, n=args.particles,
                               strategy=args.strategy,
                               emission_yield=args.see_yield,
@@ -176,14 +206,13 @@ def main(argv=None) -> None:
     if args.ensemble:
         _serve_ensemble(cfg, args, dev)
         return
-    want_stream = bool(args.metrics_jsonl or args.autotune)
     profile_dir = args.profile_dir or None
     t0 = time.perf_counter()
     balance = {}
-    if (args.domains == 1 and args.async_n == 1
-            and args.rebalance_every == 0 and args.rebalance_skew == 0
-            and not args.cell_order and not want_stream and not resilient):
-        state = pic.init_state(cfg, 0, device=dev)
+    walls = {}
+    if not engine_path:
+        state = (wall_state(cfg, 0, device=dev) if args.scenario == "wall"
+                 else pic.init_state(cfg, 0, device=dev))
         with _observed(args):
             final, diags = pic.run(cfg, args.steps, state=state)
             if dev.type == "cuda":
@@ -196,6 +225,8 @@ def main(argv=None) -> None:
                  if k.startswith("coll_")}
         if colls:
             print("collisions (total):", colls)
+        walls = {k: int(v.sum()) for k, v in diags.items()
+                 if k.endswith(WALL_KEYS)}
     else:
         ecfg = make_engine_config(cfg, domains=args.domains,
                                   max_migration=8192, async_n=args.async_n,
@@ -304,6 +335,8 @@ def main(argv=None) -> None:
             dms = ("-" if row["device_ms"] is None
                    else f"{row['device_ms']:.3f}")
             print(f"  {name}: {row['host_self_ms']:.3f}, {dms}")
+        if walls and cfg.boundary == "absorb":
+            print("wall counters (total):", walls)
 
 
 @contextlib.contextmanager
