@@ -20,11 +20,16 @@ Phases (any failure raises and ends the run with a non-zero exit):
    deposit also at the births of one ionization step, 2 x 16,777,216 rows;
    the Takizuka-Abe deflection on the within-cell pairs of the 16,777,216
    electron slots, standalone, and the Coulomb pairing kernel that pairs
-   and deflects those slots on the main path) and at ragged small shapes
+   and deflects those slots on the main path; the cell density of those
+   slots beside the histogram it replaced, and the bin starts that
+   ``charge_exchange`` searches in the neutrals' sorted cell keys beside
+   ``cell_bins``) and at ragged small shapes
    (every boundary with and without a magnetic field; the deposit kernels'
    two forms on either side of the grid size that parts them; deflection
    rows along z and with delta = 0; pairs in odd and single cells, one row,
-   no eligible row), each deposit checked to launch in the form its grid gives;
+   no eligible row; the density at cell edges, outside [0, L), with
+   weights 1, 0.37 and random and every row dead), each deposit checked to
+   launch in the form its grid gives;
    times by CUDA events (and the deposit kernels' device time behind a spin
    kernel) beside the least time the card allows, also at an engine
    domain's grid (25,601 nodes, the block form) and at 600,001 nodes;
@@ -90,9 +95,9 @@ Phases (any failure raises and ends the run with a non-zero exit):
    ``perf.phase_breakdown``; async_n 1 against 4 at D = 4 (ionization
    off: counts and charge equal, KE within 1e-5); the collision menu with
    ``collide_kernel=True`` at D = 4, async_n 4 (``coulomb_pairs`` once a
-   queue a domain); the queue push and the small deposits timed at D = 4's
-   shapes; card against CPU on the bench configuration at D = 4, async_n
-   2 with the same draws (counts, masks, rings and pending exact, x
+   queue a domain, ``cell_density`` twice a domain); the queue push and
+   the small deposits timed at D = 4's shapes; card against CPU on the
+   bench configuration at D = 4, async_n 2 with the same draws (counts, masks, rings and pending exact, x
    within 1e-5 of the slab, v 1e-4 of max|v|, rho 1e-3); and ``pic_run
    --domains 4 --async-n 4 --field-solve --phases`` at full size, its
    lines in the reference launcher's form, then one line a span name
@@ -258,6 +263,12 @@ TA_BYTES = 32       # u 12, delta 4, phi 4 read; du 12 written
 # deflection's (counted per row, as the deflection's bound counts them)
 PAIR_BYTES = 44
 PAIR_FLOPS = TA_FLOPS + 16
+# the cell density kernel: alive 1 B a row, then x 4 and w 4 an eligible
+# row (a dead row's need not be read), the (nc,) table 4 a cell written;
+# a floor, a multiply and an add an eligible row
+DENSITY_ALIVE_BYTES = 1
+DENSITY_ROW_BYTES = 8
+DENSITY_FLOPS = 3
 COLL_KEYS = ("coll_elastic", "coll_cx", "coll_coulomb")
 
 TOL = 2e-5          # x / v / w, as tests/test_kernels.py
@@ -530,6 +541,94 @@ def compare_coulomb_pairs(collide, pargs):
     if not gap <= 2.0:
         raise AssertionError(f"coulomb_pairs: a paired row {gap} ulp off")
     return max_err(got, want), int(want_n), gap
+
+
+def compare_cell_density(collide, x, alive, w, kw, exact):
+    """Kernel vs plain on the same rows: bit for bit where ``exact`` (every
+    bin a sum of equal weights), else each bin within twice the rounding
+    of a sum of its count of positive terms. Returns max |kernel - plain|."""
+    got = collide.cell_density(x, alive, w, **kw)
+    want = collide.cell_density_plain(x, alive, w, **kw)
+    torch.cuda.synchronize()
+    if exact:
+        check_equal("cell_density", got, want)
+    else:
+        ones = collide.cell_density_plain(x, alive, torch.ones_like(w), **kw)
+        tol = 2 * ones * 2.0 ** -24 * want
+        if bool(((got - want).abs() > tol).any()):
+            raise AssertionError("cell_density: a bin off by more than the "
+                                 "rounding of its sum")
+    return max_err(got, want)
+
+
+def compare_cell_starts(keys, nc):
+    """``charge_exchange``'s bin starts (a search in the sorted keys) vs
+    ``particles.cell_bins``: the starts equal, and their differences equal
+    its counts."""
+    from repro_torch.core import collisions
+    from repro_torch.core.particles import cell_bins
+
+    got = collisions._cell_starts(keys, nc)
+    counts, starts = cell_bins(keys, nc)
+    check_equal("cell starts against cell_bins", got, starts)
+    check_equal("cell starts' counts", torch.diff(
+        got, append=got.new_full((1,), keys.shape[0])), counts)
+
+
+def binning_phase(collide, gen, dev, st, grid):
+    """The cell density kernel on ragged cases, then on the §3.3 electrons'
+    slots, timed beside its bound, its plain version and the histogram it
+    replaced; the bin starts that ``charge_exchange`` searches in the
+    neutrals' sorted cell keys, checked and timed beside ``cell_bins``.
+    Returns the density's result row."""
+    from repro_torch.core import collisions
+    from repro_torch.core.particles import cell_bins
+
+    nc, rows = 37, 5001
+    kw = dict(dx=1.0, nc=nc, length=float(nc))
+    x = torch.rand(rows, generator=gen, device=dev) * (nc + 2.0) - 1.0
+    x[:nc + 1] = torch.arange(nc + 1, dtype=torch.float32, device=dev)
+    alive = torch.rand(rows, generator=gen, device=dev) < 0.7
+    ones = torch.ones(rows, device=dev)
+    for w, exact in ((ones, True), (0.37 * ones, True),
+                     (torch.rand(rows, generator=gen, device=dev), False)):
+        compare_cell_density(collide, x, alive, w, kw, exact)
+    compare_cell_density(collide, x, torch.zeros_like(alive), ones, kw, True)
+    log(f"kernels: cell_density on {rows} rows over {nc} cells (cell edges, "
+        f"rows outside [0, L), weights 1, 0.37 and random, all dead) agrees "
+        f"with its plain version")
+
+    results = {}
+    kw = dict(dx=grid.dx, nc=grid.nc, length=grid.length)
+    dargs = (st.x[0], st.alive[0], st.w[0])
+    n = dargs[0].shape[0]
+    err = compare_cell_density(collide, *dargs, kw, True)
+    live = int(collisions._eligible(dargs[0], dargs[1], grid.length).sum())
+    bms, by = bound_ms(n * DENSITY_ALIVE_BYTES + live * DENSITY_ROW_BYTES
+                       + grid.nc * 4, live * DENSITY_FLOPS)
+    ms, _ = timed(f"cell_density ({n} rows, {grid.nc} cells)",
+                  lambda: collide.cell_density(*dargs, **kw), bms)
+    results["cell_density"] = dict(
+        name="cell_density", route="cuda",
+        source="src/repro_torch/csrc/collide.cu",
+        replaces="src/repro/core/collisions.py cell_density's .at[c].add",
+        max_abs_err=err, ms=ms,
+        plain_ms=median_ms(lambda: collide.cell_density_plain(*dargs, **kw),
+                           5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+    ok = collisions._eligible(st.x[2], st.alive[2], grid.length)
+    cell = collisions._cells(st.x[2], ok, grid.dx, grid.nc)
+    keys = torch.sort(cell).values
+    compare_cell_starts(keys, grid.nc)
+    search = median_ms(lambda: collisions._cell_starts(keys, grid.nc), 20)
+    log(f"cell binning at the §3.3 rows: the density's plain index_add_ "
+        f"{results['cell_density']['plain_ms']:.4f} ms; the neutrals' bin "
+        f"starts by searchsorted {search:.4f} ms "
+        f"against cell_bins (bincount, a host sync) "
+        f"{median_ms(lambda: cell_bins(cell, grid.nc), 5):.4f} ms; "
+        f"{int(ok.sum())} eligible neutrals, {live} live electrons")
+    return results
 
 
 def deposit_bound(q, ng):
@@ -806,6 +905,7 @@ def kernel_phase(dev):
         bound_ms=bms, bound_by=by, library_ms=None)
     log(f"ta_kick rows: {rows}, of which {int((targs[1] != 0).sum())} "
         f"with delta != 0")
+    results.update(binning_phase(collide, gen, dev, st, cfg.grid))
     for r in results.values():
         extra = (f" (no deposit {r['ms_no_deposit']:.4f} ms)"
                  if "ms_no_deposit" in r else "")
@@ -891,17 +991,20 @@ def pic_counters():
     return {"fused_push_deposit": fused_cycle.fused_push_deposit,
             "mover_push": mover.mover_push, "deposit": deposit.deposit,
             "ta_kick": collide.ta_kick,
-            "coulomb_pairs": collide.coulomb_pairs}
+            "coulomb_pairs": collide.coulomb_pairs,
+            "cell_density": collide.cell_density}
 
 
-def expected(form, fused=0, fused_dep=0, mover=0, deposit=0, pairs=0):
+def expected(form, fused=0, fused_dep=0, mover=0, deposit=0, pairs=0,
+             density=0):
     """Launches a step: totals, and the deposit kernels' launches by form,
     all of them in ``form`` (fused_dep of the fused kernel's launches carry
     a deposit)."""
     from repro_torch.kernels.deposit import FORMS
 
     out = {"fused_push_deposit": fused, "mover_push": mover,
-           "deposit": deposit, "ta_kick": 0, "coulomb_pairs": pairs}
+           "deposit": deposit, "ta_kick": 0, "coulomb_pairs": pairs,
+           "cell_density": density}
     for name, n in (("fused_push_deposit", fused_dep), ("deposit", deposit)):
         for f in FORMS:
             out[f"{name}/{f}"] = n if f == form else 0
@@ -1020,6 +1123,17 @@ def collision_config(strategy="fused"):
         collisions=make_collision_menu(), collide_kernel=True)
 
 
+def menu_launches(cfg):
+    """The collide kernels' launches a step of ``cfg``'s collision menu, as
+    ``expected``'s arguments: the Coulomb pairing kernel once a Coulomb
+    entry (with ``collide_kernel``), the density once a density species."""
+    from repro_torch.core import collisions
+
+    kinds = [cc.kind for cc in cfg.collisions]
+    return {"pairs": kinds.count("coulomb") if cfg.collide_kernel else 0,
+            "density": len(collisions.density_species(cfg.collisions))}
+
+
 def run_launcher(argv, counters, label):
     from repro_torch.launch import pic_run
 
@@ -1052,7 +1166,8 @@ def main_path_phase(dev):
         counters, expected(form, mover=3, deposit=1), dev)
     ms["collisions"], paths["collisions"] = drive(
         collision_config(), 3, "collisions (menu + T-A kernel, field off)",
-        counters, expected(form, fused=1, pairs=1), dev)
+        counters, expected(form, fused=1, **menu_launches(collision_config())),
+        dev)
     paths["pic_run"] = run_launcher(
         ["--nc", "102400", "--particles", "10485760", "--strategy",
          "fused", "--steps", "3"], counters, "pic_run")
@@ -1626,9 +1741,11 @@ def engine_launches(ecfg):
     once a queue a domain (with a deposit when rho is carried), the
     deposit kernel for the electron density once a domain (ionization
     on), for the leavers once a queue a domain and for the merged rows
-    once a domain (rho carried), and the Coulomb pairing kernel once a
-    queue a domain a Coulomb entry (with ``collide_kernel``); every deposit
-    in the form of a domain's grid."""
+    once a domain (rho carried), the Coulomb pairing kernel once a
+    queue a domain a Coulomb entry (with ``collide_kernel``), the cell
+    density once a domain a density species and the bin starts twice a
+    queue a domain a CX entry; every deposit in the form of a domain's
+    grid."""
     from repro_torch.distributed import engine
     from repro_torch.kernels.deposit import deposit_form
 
@@ -1638,10 +1755,11 @@ def engine_launches(ecfg):
     queues = d * n_q
     dep = ((d if cfg.ionization is not None else 0)
            + (queues + d if carried else 0))
-    coulomb = sum(cc.kind == "coulomb" for cc in cfg.collisions)
+    menu = menu_launches(cfg)
     return expected(deposit_form(ecfg.local_nc() + 1), fused=queues,
                     fused_dep=queues if carried else 0, deposit=dep,
-                    pairs=queues * coulomb if cfg.collide_kernel else 0)
+                    pairs=queues * menu["pairs"],
+                    density=d * menu["density"])
 
 
 def resident_counts(state):
@@ -2072,6 +2190,7 @@ def engine_phase(dev):
     counts = {name: sum(p[name] for p in paths.values())
               for name in paths[f"D{ENGINE_RUNS[0][0]}xq1"]}
     for name in ("fused_push_deposit", "deposit", "coulomb_pairs",
+                 "cell_density",
                  "fused_push_deposit/block", "fused_push_deposit/pair",
                  "deposit/block", "deposit/pair"):
         if counts[name] <= 0:
@@ -2839,7 +2958,7 @@ SERVE_LINE = re.compile(r"session s(\d+): slot=(\d+) steps=(\d+) "
 SERVE_LAST = re.compile(r"(\d+) sessions x (\d+) steps, width=(\d+): "
                         r"[\d.]+s — stats (\{.*\})")
 PIC_KERNELS = ("fused_push_deposit", "mover_push", "deposit", "ta_kick",
-               "coulomb_pairs")
+               "coulomb_pairs", "cell_density")
 SERVE_ARGV = ["--ensemble", "8", "--steps", "5", "--strategy", "fused"]
 
 
@@ -2959,7 +3078,7 @@ def collision_serve(dev, counters):
     from repro_torch.serve import SimService
 
     cfg = collision_config()
-    solo = expected(deposit_form(cfg.nc + 1), fused=1, pairs=1)
+    solo = expected(deposit_form(cfg.nc + 1), fused=1, **menu_launches(cfg))
     reset_launches(counters)
     svc = SimService(cfg, width=2, device=dev)
     base = tuple(cc.rate for cc in cfg.collisions)
@@ -3260,7 +3379,8 @@ def serve_phase(dev, solo_ms):
     counts = {name: sum(p[name] for p in paths.values())
               for name in PIC_KERNELS}
     # the mover kernel serves 'explicit' only, which refuses params
-    for name in ("fused_push_deposit", "deposit", "coulomb_pairs"):
+    for name in ("fused_push_deposit", "deposit", "coulomb_pairs",
+                 "cell_density"):
         if counts[name] <= 0:
             raise AssertionError(f"phase 12: {name} never launched")
     numbers["seconds"] = time.perf_counter() - t_start

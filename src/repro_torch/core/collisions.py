@@ -10,8 +10,8 @@ slot; a refused neutral survives and retries (``birth_overflow``).
 
 Binary collisions pair particles inside one grid cell. Three operators run
 from a ``CollisionConfig`` menu (``apply_menu``), on the cell-binned
-machinery ``cell_shuffled_order`` / ``pair_in_cells`` /
-``particles.cell_bins``:
+machinery ``cell_density`` / ``cell_shuffled_order`` / ``pair_in_cells`` /
+``_cell_starts``:
 
 * ``elastic_scatter``: isotropic scattering off a per-cell partner density,
   P = 1 - exp(-n_cell rate dt); keeps each particle's speed;
@@ -40,10 +40,13 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.core.grid import Grid1D, deposit_density, gather
-from repro_torch.core.particles import (SpeciesBuffer, _put, cell_bins,
-                                        inject_masked, kill, nonzero_static,
-                                        take)
-from repro_torch.kernels.mover import inv_dx
+from repro_torch.core.particles import (SpeciesBuffer, _put, inject_masked,
+                                        kill, nonzero_static, take)
+from repro_torch.kernels import ops
+# rows that may collide and their cell keys: the rule lives beside the
+# density kernel, which restates it
+from repro_torch.kernels.collide import cell_keys as _cells
+from repro_torch.kernels.collide import eligible as _eligible
 
 
 class IonizationParams(NamedTuple):
@@ -230,19 +233,6 @@ def density_species(cfgs: Sequence[CollisionConfig]) -> tuple[int, ...]:
         {cc.species if cc.partner is None else cc.partner for cc in cfgs}))
 
 
-def _eligible(x: torch.Tensor, alive: torch.Tensor,
-              length: float) -> torch.Tensor:
-    """Rows that may collide: alive and inside the domain."""
-    return alive & (x >= 0.0) & (x < length)
-
-
-def _cells(x: torch.Tensor, ok: torch.Tensor, dx: float,
-           nc: int) -> torch.Tensor:
-    """Cell key per row (int32); ineligible rows parked at ``nc``."""
-    c = torch.floor(x * inv_dx(dx)).to(torch.int32).clamp(0, nc - 1)
-    return torch.where(ok, c, nc)
-
-
 def _rank_rows(ok: torch.Tensor) -> torch.Tensor:
     """Occupancy rank of each row (the k-th ``ok`` row maps to k); draws
     are gathered through it."""
@@ -269,13 +259,22 @@ def _draw(draws: dict | None, name: str, gen: torch.Generator, n: int,
 
 def cell_density(grid: Grid1D, buf: SpeciesBuffer) -> torch.Tensor:
     """Per-cell weighted density (nc,): the rate input of the menu. A
-    histogram of the eligible rows' weights, not the CIC deposit."""
-    ok = _eligible(buf.x, buf.alive, grid.length)
-    c = _cells(buf.x, ok, grid.dx, grid.nc)
-    w = torch.where(ok, buf.w, 0.0)
-    hist = torch.zeros(grid.nc + 1, dtype=buf.x.dtype, device=buf.x.device)
-    hist.index_add_(0, c.long(), w)
-    return hist[:grid.nc] * inv_dx(grid.dx)
+    histogram of the eligible rows' weights (``_eligible``, ``_cells``),
+    not the CIC deposit; one kernel on the card."""
+    return ops.cell_density(buf.x, buf.alive, buf.w, dx=grid.dx, nc=grid.nc,
+                            length=grid.length)
+
+
+def _cell_shuffle(gen: torch.Generator, cell: torch.Tensor, ok: torch.Tensor,
+                  draws: dict | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order, cell[order]) of ``cell_shuffled_order``: the sorted keys come
+    with the sort that groups the rows."""
+    n = cell.shape[0]
+    u = _draw(draws, "shuffle", gen, n, cell.device)[_rank_rows(ok)]
+    perm = torch.sort(u, stable=True).indices
+    keys, idx = torch.sort(cell[perm], stable=True)
+    return perm[idx], keys
 
 
 def cell_shuffled_order(gen: torch.Generator, cell: torch.Tensor,
@@ -284,10 +283,7 @@ def cell_shuffled_order(gen: torch.Generator, cell: torch.Tensor,
     """Permutation grouping rows by cell in random within-cell order
     (ineligible rows at the tail). ``draws``: ``"shuffle"`` (n,) in
     [0, 1), read through the occupancy rank."""
-    n = cell.shape[0]
-    u = _draw(draws, "shuffle", gen, n, cell.device)[_rank_rows(ok)]
-    perm = torch.sort(u, stable=True).indices
-    return perm[torch.sort(cell[perm], stable=True).indices]
+    return _cell_shuffle(gen, cell, ok, draws)[0]
 
 
 def pair_in_cells(gen: torch.Generator, cell: torch.Tensor, ok: torch.Tensor,
@@ -343,6 +339,29 @@ def elastic_scatter(gen: torch.Generator, sp: SpeciesBuffer,
     return (dataclasses.replace(sp, v=v), hit.sum(dtype=torch.int32))
 
 
+def _cell_starts(keys: torch.Tensor, nc: int) -> torch.Tensor:
+    """Bin starts (nc + 1,) int32 of cell keys (n,) int32 sorted ascending
+    in [0, nc]: ``starts[c]`` is the first position whose key is >= c, so
+    cell c occupies [starts[c], starts[c + 1]). ``particles.cell_bins``'
+    starts, without its histogram or its host sync."""
+    cells = torch.arange(nc + 1, dtype=keys.dtype, device=keys.device)
+    return torch.searchsorted(keys, cells, out_int32=True)
+
+
+def _hit_ranks(cell: torch.Tensor, hit: torch.Tensor, nc: int
+               ) -> tuple[torch.Tensor, ...]:
+    """Rows in stable cell order and, for each hit row, its rank among its
+    cell's hits: the running hit count minus the hits before the cell's
+    first sorted row. Returns (order, cell[order] int64, hit[order],
+    rank); a row that is no hit has no meaningful rank."""
+    keys, order = torch.sort(cell, stable=True)
+    c_sort = keys.long()
+    first = _cell_starts(keys, nc)[c_sort]
+    hit_sort = hit[order]
+    csum = torch.cumsum(hit_sort, 0)
+    return order, c_sort, hit_sort, csum - 1 - (csum - hit_sort.long())[first]
+
+
 def charge_exchange(gen: torch.Generator, ions: SpeciesBuffer,
                     neutrals: SpeciesBuffer, nn_cell: torch.Tensor,
                     grid: Grid1D, rate: float, dt: float,
@@ -364,19 +383,15 @@ def charge_exchange(gen: torch.Generator, ions: SpeciesBuffer,
     u = _draw(draws, "uniform", gen, cap_i, ions.x.device)[_rank_rows(ok_i)]
     hit = ok_i & (u < p)
 
-    # the partner table: this buffer's neutrals by cell, shuffled in-cell
+    # the partner table: this buffer's neutrals by cell, shuffled in-cell,
+    # its bins read off the sorted keys
     ok_n = _eligible(neutrals.x, neutrals.alive, grid.length)
     c_n = _cells(neutrals.x, ok_n, grid.dx, nc)
-    n_order = cell_shuffled_order(gen, c_n, ok_n, draws)
-    counts_n, starts_n = cell_bins(c_n, nc)
+    n_order, cn_sort = _cell_shuffle(gen, c_n, ok_n, draws)
+    starts_n = _cell_starts(cn_sort, nc)
+    counts_n = torch.diff(starts_n, append=starts_n.new_full((1,), cap_n))
 
-    # rank of each event within its cell: running event count in
-    # cell-sorted ion order minus the events of all earlier cells
-    i_order = torch.sort(c_i, stable=True).indices
-    c_sort = c_i[i_order].long()
-    hit_sort = hit[i_order]
-    _, starts_h = cell_bins(torch.where(hit, c_i, nc), nc)
-    rk = torch.cumsum(hit_sort, 0) - 1 - starts_h[c_sort]
+    i_order, c_sort, hit_sort, rk = _hit_ranks(c_i, hit, nc)
     has = hit_sort & (rk < counts_n[c_sort])
     ppos = torch.where(has, starts_n[c_sort] + rk, cap_n)
     partner = n_order[ppos.clamp(0, cap_n - 1)]
@@ -452,7 +467,6 @@ def coulomb_intra(gen: torch.Generator, sp: SpeciesBuffer,
     ok = _eligible(sp.x, sp.alive, grid.length)
     c = _cells(sp.x, ok, grid.dx, grid.nc)
     if use_kernel:
-        from repro_torch.kernels import ops
         order = cell_shuffled_order(gen, c, ok, draws)
         nrm, phi = _coulomb_draws(gen, draws, order.shape[0], dtype,
                                   sp.x.device)

@@ -22,6 +22,12 @@
 // pair_in_cells (src/repro/core/collisions.py) folded together with
 // _ta_kernel's deflection, which runs here as ta_deflect, the one body both
 // kernels compile.
+//
+// cell_density: the per-cell density of the collision menu (see
+// kernels/collide.py for its bound and design). It replaces no TPU kernel:
+// its origin is the reference's .at[c].add histogram in cell_density
+// (src/repro/core/collisions.py), which parks every row it does not count
+// in a sentinel bin nc. Here such a row never reaches an atomic.
 #include <cuda_runtime.h>
 
 namespace {
@@ -166,6 +172,24 @@ __global__ void coulomb_pairs_kernel(
   if (threadIdx.x == 0 && pairs) atomicAdd(count, pairs);
 }
 
+// The per-cell sum of the weights of the rows alive inside [0, length).
+// A dead or outside row returns before any atomic (kernels/collide.py's
+// eligible); an eligible row's cell is cell_keys' rule, floor(x * inv_dx)
+// in float32 clamped to [0, nc - 1], and its weight is added into the
+// zeroed (nc,) histogram.
+__global__ void cell_density_kernel(const float* __restrict__ x,
+                                    const bool* __restrict__ alive,
+                                    const float* __restrict__ w,
+                                    float* __restrict__ hist, float inv_dx,
+                                    float length, long long n, int nc) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n || !alive[t]) return;
+  const float xt = x[t];
+  if (!(xt >= 0.0f && xt < length)) return;
+  const int c = (int)floorf(xt * inv_dx);
+  atomicAdd(hist + min(max(c, 0), nc - 1), w[t]);
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch; the caller raises if not 0.
@@ -201,5 +225,21 @@ extern "C" int coulomb_pairs(const void* order, const void* cell,
       (const float*)v, (const float*)n_cell, (const float*)nrm,
       (const float*)phi, (const float*)rate_p, rate_v, (const float*)dt_p,
       dt_v, (float*)out, (int*)count, n, nc);
+  return (int)cudaGetLastError();
+}
+
+// hist (nc,) float32 is zeroed on the stream, then the eligible rows of
+// x, alive, w (n,) add into it; n >= 1.
+extern "C" int cell_density(const void* x, const void* alive, const void* w,
+                            void* hist, float inv_dx, float length,
+                            long long n, int nc, void* stream) {
+  constexpr int kThreads = 256;
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = (int)cudaMemsetAsync(hist, 0, (size_t)nc * sizeof(float), s);
+  if (err != 0) return err;
+  cell_density_kernel<<<blocks, kThreads, 0, s>>>(
+      (const float*)x, (const bool*)alive, (const float*)w, (float*)hist,
+      inv_dx, length, n, nc);
   return (int)cudaGetLastError();
 }

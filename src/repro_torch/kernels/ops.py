@@ -91,6 +91,16 @@ def coulomb_pairs(order: torch.Tensor, cell: torch.Tensor, v: torch.Tensor,
     return fn(order, cell, v, n_cell, nrm, phi, rate, dt)
 
 
+def cell_density(x: torch.Tensor, alive: torch.Tensor, w: torch.Tensor, *,
+                 dx: float, nc: int, length: float) -> torch.Tensor:
+    """Per-cell density (nc,)/dx: the sum of the weights w (n,) of the rows
+    alive inside [0, length), by cell floor(x * inv_dx(dx)) clamped to
+    [0, nc - 1]."""
+    fn = (_collide.cell_density if _on_card(x)
+          else _collide.cell_density_plain)
+    return fn(x, alive, w, dx=dx, nc=nc, length=length) * _mover.inv_dx(dx)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Masked online-softmax attention, the function of the reference's

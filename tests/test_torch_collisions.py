@@ -104,6 +104,82 @@ def test_cell_density_matches_reference():
                                   n(ref_coll.cell_density(rg, rb1)))
 
 
+@pytest.mark.parametrize("case", ["edges", "all_dead", "n0"])
+def test_cell_density_counts_only_eligible_rows(case):
+    """``cell_density`` on rows at the cell edges, at x = L and just below
+    0 (counted only inside [0, L)), with every row dead, and with none: a
+    numpy histogram of the eligible rows by floor(x / dx)."""
+    nc, dx = 16, 0.5
+    g = Grid1D(nc=nc, dx=dx)
+    x = np.concatenate([np.arange(nc + 1) * dx, [-1e-7, -0.0, g.length - 1e-4,
+                                                g.length + 3.0]])
+    x = x.astype(np.float32)
+    alive = np.ones(x.shape, bool) if case == "edges" else \
+        np.zeros(x.shape, bool)
+    if case == "n0":
+        x, alive = x[:0], alive[:0]
+    buf = particles.SpeciesBuffer(x=t(x), v=t(np.zeros((len(x), 3),
+                                                        np.float32)),
+                                  w=t(np.ones(len(x), np.float32)),
+                                  alive=t(alive))
+    ok = alive & (x >= 0) & (x < g.length)
+    want = np.zeros(nc, np.float32)
+    np.add.at(want, np.floor(x[ok] / dx).astype(int).clip(0, nc - 1), 1.0)
+    got = n(C.cell_density(g, buf))
+    np.testing.assert_array_equal(got, want / np.float32(dx))
+    assert got.sum() == (ok.sum() / dx)
+
+
+def _sorted_keys(case):
+    """(sorted int32 cell keys, nc) of one bin-starts case; ineligible rows
+    are keyed nc."""
+    rng = np.random.default_rng(len(case))
+    nc = {"single_cell": 1, "n1": 7}.get(case, 50)
+    n_rows = {"n0": 0, "n1": 1}.get(case, 3000)
+    keys = rng.integers(0, nc + 1, n_rows)
+    if case == "empty_cells":
+        keys = np.where(rng.random(n_rows) < 0.8,
+                        rng.integers(10, 20, n_rows), nc)
+    if case == "all_sentinel":
+        keys[:] = nc
+    return t(np.sort(keys).astype(np.int32)), nc
+
+
+@pytest.mark.parametrize("case", ["random", "empty_cells", "all_sentinel",
+                                  "single_cell", "n1", "n0"])
+def test_cell_bounds_plain_matches_cell_bins(case):
+    """Starts from sorted keys (``_cell_starts``, a search of each cell in
+    the keys) equal ``cell_bins``' histogram table, and their differences
+    (with n after the last) its counts."""
+    keys, nc = _sorted_keys(case)
+    counts, starts = particles.cell_bins(keys, nc)
+    got = C._cell_starts(keys, nc)
+    assert got.dtype == torch.int32 and got.shape == (nc + 1,)
+    assert torch.equal(got, starts)
+    assert torch.equal(torch.diff(got, append=got.new_full(
+        (1,), keys.shape[0])), counts)
+
+
+@pytest.mark.parametrize("seed,p_hit", [(0, 0.04), (1, 0.5), (2, 1.0)])
+def test_cx_rank_from_cell_starts_equals_the_hit_histogram_path(seed, p_hit):
+    """``charge_exchange``'s rank of each event within its cell
+    (``_hit_ranks``: the cumsum at each cell's first sorted row) equals
+    the rank the hits' own bin table gave (``cell_bins`` of the hits,
+    others keyed nc) on every hit row."""
+    rng = np.random.default_rng(seed)
+    nc, cap = 40, 5000
+    ok = rng.random(cap) < 0.7
+    c_i = t(np.where(ok, rng.integers(0, nc, cap), nc).astype(np.int32))
+    hit = t(ok & (rng.random(cap) < p_hit))
+    i_order, c_sort, hit_sort, rk = C._hit_ranks(c_i, hit, nc)
+    assert torch.equal(i_order, torch.sort(c_i, stable=True).indices)
+    assert torch.equal(c_sort, c_i[i_order].long())
+    _, starts_h = particles.cell_bins(torch.where(hit, c_i, nc), nc)
+    want = torch.cumsum(hit_sort, 0) - 1 - starts_h[c_sort]
+    assert int(hit_sort.sum()) > 0
+    assert torch.equal(rk[hit_sort], want[hit_sort])
+
+
 @pytest.mark.parametrize("cap,nc,seed", [(2048, 16, 0), (1001, 5, 1)])
 def test_cell_order_and_pairs_match_reference(cap, nc, seed):
     """Dead rows read the draw of the previous live row: ties the sort must

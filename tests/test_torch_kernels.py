@@ -244,8 +244,10 @@ def test_ta_kick_plain_matches_reference(m):
     (port_deposit.deposit, "deposit"),
     (port_collide.ta_kick, "ta_kick"),
     (port_collide.coulomb_pairs, "coulomb_pairs"),
+    (port_collide.cell_density, "cell_density"),
     (port_flash.flash_attention, "flash"),
-], ids=["fused", "mover", "deposit", "ta_kick", "coulomb_pairs", "flash"])
+], ids=["fused", "mover", "deposit", "ta_kick", "coulomb_pairs",
+        "cell_density", "flash"])
 def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
     """A kernel wrapper never computes on the CPU: it raises before any
     build or launch, and its launch count stays put."""
@@ -266,6 +268,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(fn, args):
         elif args == "coulomb_pairs":
             fn(torch.arange(4), torch.zeros(4, dtype=torch.int32),
                torch.zeros(4, 3), torch.ones(2), x, x, 1e-3, 0.2)
+        elif args == "cell_density":
+            fn(x, x > 0, x, dx=1.0, nc=8, length=8.0)
         elif args == "flash":
             q = torch.zeros(1, 4, 2, 64)
             fn(q, q, q, causal=True)
