@@ -2141,13 +2141,9 @@ def engine_phase(dev):
             f"{n_q}", counters, dev)
         busy, overlap = profile_engine(ecfg, state, label, ms)
         probe = perf.phase_breakdown(ecfg, iters=3, warmup=1, state=state)
-        log(f"engine {label} per-phase (device µs a step, CUDA events): "
+        log(f"engine {label} per-phase (device µs a step, from the spans): "
             + ", ".join(f"{k} {v:.1f}" for k, v in probe["phases"].items())
-            + f"; total {probe['total']:.1f}; cumulative medians "
-            + ", ".join(f"{k} {v['median']:.1f}"
-                        for k, v in probe["cumulative"].items()))
-        for flag in probe["flags"]:
-            log(f"  probe flag: {flag}")
+            + f"; total {probe['total']:.1f}")
         numbers[label] = dict(host_ms=ms, busy_ms=busy, overlap_ms=overlap,
                               phases_us=probe["phases"])
         del state

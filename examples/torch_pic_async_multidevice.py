@@ -100,8 +100,6 @@ def main(argv=None) -> None:
     print("per-phase breakdown (us/step):")
     for k, v in phases.items():
         print(f"  {k:<{width}} {v:10.1f}")
-    for flag in probe["flags"]:
-        print("  probe flag:", flag)
 
 
 if __name__ == "__main__":

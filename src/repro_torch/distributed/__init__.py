@@ -46,6 +46,7 @@ Nsight phase ranges    ``repro.obs.tracing`` scopes  ``obs.tracing``
                                                      and an NVTX range with
                                                      the same scope names;
                                                      ``perf.phase_breakdown``
+                                                     reads their spans
 =====================  ============================  ========================
 
 ``core/decomposition.py`` is the back-compat shim over this package
@@ -54,7 +55,7 @@ async_n = 1).
 """
 
 from repro_torch.distributed.engine import (EngineConfig, EngineState,
-                                            PHASES, attach_engine_state,
+                                            attach_engine_state,
                                             init_engine_state,
                                             make_engine_step, retarget_state,
                                             state_from_numpy)
@@ -62,7 +63,7 @@ from repro_torch.distributed.perf import (phase_breakdown, queue_stats,
                                           scaling_metrics, write_scaling_json)
 
 __all__ = [
-    "EngineConfig", "EngineState", "PHASES", "attach_engine_state",
+    "EngineConfig", "EngineState", "attach_engine_state",
     "init_engine_state", "make_engine_step", "phase_breakdown",
     "queue_stats", "retarget_state", "scaling_metrics", "state_from_numpy",
     "write_scaling_json",

@@ -28,17 +28,16 @@ domains in one process on one card:
 The phase order is the reference's: ingest (flush pending, periodic and
 skew-triggered rebalance, ``cell_order``) -> halo field -> per queue: fused
 push (``boundary="open"``, carried rho) -> collide -> MC ionization ->
-migrate + SEE -> deferred merge -> diagnostics. ``make_engine_step(upto=)``
-builds the probes of ``PHASES``; each phase and queue stage runs inside an
-``obs.tracing.phase_scope`` with the reference's scope name. Scopes only
-the port has name the host work between them: ``engine/step`` (the root),
-``engine/buffers`` (the step's receive buffers, ring rows and carried
-rho), per (domain, queue) ``engine/queue/q<k>`` around everything issued
-on the queue's stream, with ``engine/slice/q<k>`` (the queue's gather)
-and ``engine/ring/q<k>`` (its turn in the domain's ring chain, holding
-``engine/births/q<k>`` and the SEE stage) beside the stages,
-``engine/join`` (the wait for every queue) and ``engine/release`` (the
-step's working set freed).
+migrate + SEE -> deferred merge -> diagnostics, one function a phase; each
+phase and queue stage runs inside an ``obs.tracing.phase_scope`` with the
+reference's scope name. Scopes only the port has name the host work between
+them: ``engine/step`` (the root), ``engine/buffers`` (the step's receive
+buffers, ring rows and carried rho), per (domain, queue)
+``engine/queue/q<k>`` around everything issued on the queue's stream, with
+``engine/slice/q<k>`` (the queue's gather) and ``engine/ring/q<k>`` (its
+turn in the domain's ring chain, holding ``engine/births/q<k>`` and the SEE
+stage) beside the stages, ``engine/join`` (the wait for every queue) and
+``engine/release`` (the step's working set freed).
 
 No host synchronisation inside a step: packing is done by prefix sums
 (``particles.nonzero_static``), never ``torch.nonzero``, and no ``.item()``
@@ -59,8 +58,9 @@ Divergences from the reference, kept on purpose:
   split, which a float32 sum cannot be (the reference's
   ``test_domain_parity`` fails on exactly that).
 * The step donates its input state, as the reference's does: the ingest
-  writes the pending rows into the input's buffers in place. The probes
-  (``upto`` other than "full") and ``donate=False`` copy first.
+  writes the pending rows into the input's buffers in place;
+  ``donate=False`` copies first. The step has no probe mode:
+  ``perf.phase_breakdown`` reads the phases from the spans of real steps.
 * Random numbers come from one ``torch.Generator`` per domain; ``draws=``
   takes the reference's arrays instead (see ``step``). The state keeps the
   reference's per-domain key, ``EngineState.key`` ((D, 2) uint32, the
@@ -108,9 +108,9 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import halo
 from repro_torch.obs.tracing import phase_scope
 
-# cumulative phase checkpoints of the probes (see perf.py): a step built
-# with upto=<phase> runs the pipeline through that phase and returns
-PHASES = ("ingest", "field", "push", "collide", "migrate", "merge", "full")
+_SPECIES_FIELDS = ("x", "v", "w", "alive")
+_RING_FIELDS = ("slots", "head", "count")
+_PENDING_FIELDS = ("x", "v", "w", "alive", "dest")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -405,14 +405,15 @@ def _flush_pending(st: StackedSpecies, p: PendingArrivals, *,
     return st
 
 
-def _empty_pending(d: int, s: int, m: int, cap: int, device,
-                   dtype=torch.float32) -> PendingArrivals:
+def _empty_pending(lead: tuple, cap: int, device) -> PendingArrivals:
+    """Dead pending rows of shape ``lead``, ``dest`` the drop value."""
+    f32 = torch.float32
     return PendingArrivals(
-        x=torch.zeros(d, s, m, dtype=dtype, device=device),
-        v=torch.zeros(d, s, m, 3, dtype=dtype, device=device),
-        w=torch.zeros(d, s, m, dtype=dtype, device=device),
-        alive=torch.zeros(d, s, m, dtype=torch.bool, device=device),
-        dest=torch.full((d, s, m), cap, dtype=torch.int32, device=device))
+        x=torch.zeros(lead, dtype=f32, device=device),
+        v=torch.zeros(lead + (3,), dtype=f32, device=device),
+        w=torch.zeros(lead, dtype=f32, device=device),
+        alive=torch.zeros(lead, dtype=torch.bool, device=device),
+        dest=torch.full(lead, cap, dtype=torch.int32, device=device))
 
 
 def _birth_block(s: int, nb: int, cap: int, device, rows: dict
@@ -420,13 +421,7 @@ def _birth_block(s: int, nb: int, cap: int, device, rows: dict
     """One (S, nb) pending block of one domain whose live rows are MC
     births: ``rows`` maps a species row j to (x, v, w, ok, dest); other
     rows stay dead. ``dest=None`` (legacy mode) leaves the drop value."""
-    f32 = torch.float32
-    b = PendingArrivals(
-        x=torch.zeros(s, nb, dtype=f32, device=device),
-        v=torch.zeros(s, nb, 3, dtype=f32, device=device),
-        w=torch.zeros(s, nb, dtype=f32, device=device),
-        alive=torch.zeros(s, nb, dtype=torch.bool, device=device),
-        dest=torch.full((s, nb), cap, dtype=torch.int32, device=device))
+    b = _empty_pending((s, nb), cap, device)
     for j, (x, v, w, ok, dest) in rows.items():
         ok = ok.bool()
         b.x[j] = x
@@ -438,9 +433,18 @@ def _birth_block(s: int, nb: int, cap: int, device, rows: dict
     return b
 
 
-def _ring_row(ring: FreeSlotRing, r: int) -> FreeSlotRing:
-    return FreeSlotRing(slots=ring.slots[r], head=ring.head[r],
-                        count=ring.count[r])
+def _row_tables(ring: FreeSlotRing, rows: dict, dtypes: tuple) -> list:
+    """(S, M) tables over the species rows of one domain's (S, R) group
+    ring: row j of table t is ``rows[j][t]`` cast to ``dtypes[t]``, every
+    other row zero."""
+    s = ring.count.shape[0]
+    m = next(iter(rows.values()))[0].shape[0]
+    tabs = [torch.zeros(s, m, dtype=dt, device=ring.slots.device)
+            for dt in dtypes]
+    for j, vals in rows.items():
+        for tab, v, dt in zip(tabs, vals, dtypes):
+            tab[j] = v.to(dt)
+    return tabs
 
 
 def _claim_rows(ring: FreeSlotRing, want_rows: dict, cap: int,
@@ -448,46 +452,21 @@ def _claim_rows(ring: FreeSlotRing, want_rows: dict, cap: int,
     """Claim slots from one domain's (S, R) group ring for the species
     rows of ``want_rows`` (row j -> (M,) mask); ``budget`` caps every
     row's grants. Returns (ring, dest (S, M), ok (S, M))."""
-    s = ring.count.shape[0]
-    m = next(iter(want_rows.values())).shape[0]
-    want = torch.zeros(s, m, dtype=torch.bool, device=ring.slots.device)
-    for j, wv in want_rows.items():
-        want[j] = wv.bool()
-    bud = None if budget is None else budget.expand(s)
+    want, = _row_tables(ring, {j: (wv,) for j, wv in want_rows.items()},
+                        (torch.bool,))
+    bud = None if budget is None else budget.expand(ring.count.shape[0])
     return ring_claim(ring, want, cap, bud)
 
 
-def _push_rows(ring: FreeSlotRing, idx_rows: dict, m: int) -> FreeSlotRing:
-    """Push freed slots into one domain's (S, R) group ring for the rows
-    of ``idx_rows`` (row j -> (idx (M,), ok (M,)))."""
-    s = ring.count.shape[0]
-    dev = ring.slots.device
-    idx = torch.zeros(s, m, dtype=torch.int32, device=dev)
-    okm = torch.zeros(s, m, dtype=torch.bool, device=dev)
-    for j, (iv, ov) in idx_rows.items():
-        idx[j] = iv.to(torch.int32)
-        okm[j] = ov.bool()
-    return ring_push(ring, idx, okm)
-
-
-def _compact_group(st: StackedSpecies
+def _compact_group(st: StackedSpecies, cell: tuple | None
                    ) -> tuple[StackedSpecies, torch.Tensor]:
     """Stable per-species compaction (alive first) of a domain's (S, cap)
-    group: its interleaved queue split is occupancy-even. Returns the
+    group, or with ``cell = (dx, nc)`` a stable sort by cell with the dead
+    rows at the tail (``particles.sort_by_cell`` over the species axis):
+    either way its interleaved queue split is occupancy-even. Returns the
     group and its (S,) alive counts."""
-    order = torch.sort((~st.alive).to(torch.uint8), dim=-1,
-                       stable=True).indices
-    out = _reorder(st, order)
-    return out, out.alive.sum(-1, dtype=torch.int32)
-
-
-def _cellsort_group(st: StackedSpecies, dx: float, nc: int
-                    ) -> tuple[StackedSpecies, torch.Tensor]:
-    """Per-species stable sort by cell, dead rows at the tail
-    (``particles.sort_by_cell`` over the species axis): also a valid
-    compaction. Returns the group and its (S,) alive counts."""
-    key = cell_index(SpeciesBuffer(x=st.x, v=st.v, w=st.w, alive=st.alive),
-                     dx, nc)
+    key = ((~st.alive).to(torch.uint8) if cell is None else cell_index(
+        SpeciesBuffer(x=st.x, v=st.v, w=st.w, alive=st.alive), *cell))
     out = _reorder(st, torch.sort(key, dim=-1, stable=True).indices)
     return out, out.alive.sum(-1, dtype=torch.int32)
 
@@ -511,13 +490,152 @@ def _group_consts(cfg: PICConfig, idxs, device):
                          device=device))
 
 
-def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
-                     donate: bool = True, with_params: bool = False):
+def _domain_rho(grid: Grid1D, sts, charges) -> torch.Tensor:
+    """(D, ng) charge of every domain's group stacks, given each group's
+    (S,) charges."""
+    return torch.stack([
+        sum(deposit_stacked(grid, st.x[r], st.w[r], st.alive[r], ch)
+            for st, ch in zip(sts, charges))
+        for r in range(sts[0].x.shape[0])])
+
+
+# --------------------------------------------------------------- the step
+#
+# ``make_engine_step`` derives a ``_Plan`` from the config once; each step
+# opens a ``_Work`` on its state and runs one function a phase on the two.
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What a step takes from its config: the local grid, the queues'
+    sizes and budgets, the capacity groups and the menu of each."""
+    ecfg: EngineConfig
+    cfg: PICConfig
+    d: int                        # domains
+    grid: Grid1D                  # a domain's grid
+    top: float                    # the last float32 inside the slab
+    n_q: int                      # queues per domain
+    m_q: int                      # per-queue migration budget
+    b_q: int                      # per-queue birth budget (0: no ionization)
+    ion: tuple | None             # (neutral, electron, ion) species
+    carried: bool                 # the rho is carried from step to step
+    groups: tuple                 # species indices of each capacity group
+    loc: dict                     # species -> (group, row)
+    prows: tuple                  # pending rows of each group
+    caps: tuple                   # local capacity of each group
+    see_pairs: tuple              # active (primary, target) emission pairs
+    g_menu: tuple                 # menu indices of each group's entries
+
+
+def _plan(ecfg: EngineConfig) -> _Plan:
+    """Validate ``ecfg`` for the engine and derive its plan."""
+    cfg = ecfg.pic
+    ncl = ecfg.local_nc()
+    n_q = ecfg.async_n
+    groups = _capacity_groups(ecfg)
+    loc = _species_location(groups)
+    for sc in cfg.species:
+        cap_l = ecfg.local_cap(sc)
+        if cap_l % n_q != 0:
+            raise ValueError(
+                f"async_n ({n_q}) must divide the local capacity ({cap_l}) "
+                f"of species {sc.name!r}")
+    for cc in cfg.collisions:
+        parts = collisions.involved_species([cc])
+        if len({loc[i][0] for i in parts}) != 1:
+            names = [cfg.species[i].name for i in parts]
+            raise ValueError(
+                f"collision {cc.kind!r} pairs species {names} across "
+                f"capacity groups; give them equal capacities to run on "
+                f"the engine")
+    return _Plan(
+        ecfg=ecfg, cfg=cfg, d=ecfg.num_domains(),
+        grid=Grid1D(nc=ncl, dx=cfg.dx),
+        top=float(np.nextafter(np.float32(ncl * cfg.dx), np.float32(0.0))),
+        n_q=n_q, m_q=ecfg.queue_migration,
+        b_q=ecfg.queue_births if cfg.ionization is not None else 0,
+        ion=cfg.ionization, carried=_carries_rho(ecfg),
+        groups=tuple(groups), loc=loc,
+        prows=tuple(_group_pending_rows(ecfg, groups)),
+        caps=tuple(ecfg.local_cap(cfg.species[idxs[0]]) for idxs in groups),
+        see_pairs=_see_pairs(cfg),
+        g_menu=tuple(tuple(k_m for k_m, cc in enumerate(cfg.collisions)
+                           if loc[cc.species][0] == g)
+                     for g in range(len(groups))))
+
+
+class _Work:
+    """One step's working set: its input state, its constants on the
+    state's device, the group stacks and rings it replaces, and what each
+    phase hands to the next."""
+
+    def __init__(self, plan: _Plan, cache: dict, state: EngineState,
+                 rp: RuntimeParams | None, draws, donate: bool):
+        cfg = plan.cfg
+        dev = state.groups[0].x.device
+        self.state, self.rp, self.draws, self.dev = state, rp, draws, dev
+        self.card = dev.type == "cuda"
+        if dev not in cache:
+            cache[dev] = (
+                [_group_consts(cfg, idxs, dev) for idxs in plan.groups],
+                [torch.tensor(idxs, device=dev) for idxs in plan.groups],
+                {(r, k): torch.cuda.Stream(dev) for r in range(plan.d)
+                 for k in range(plan.n_q)} if self.card else None)
+        gconsts, sel, self.streams = cache[dev]
+        if rp is not None:
+            # the params' dt*stride in place of the config's; q/m*dt is
+            # formed on the device from them on both paths
+            gconsts = [(qm, rp.dts.index_select(0, ix), ch)
+                       for (qm, _, ch), ix in zip(gconsts, sel)]
+        self.gconsts = gconsts        # per group (q/m, dt*stride, charges)
+        self.dt = cfg.dt if rp is None else rp.dt
+        self.b = _b_arg(cfg, rp)
+        self.iparams = (collisions.IonizationParams(
+            rate=cfg.ionization_rate if rp is None else rp.ionization_rate,
+            vth_electron=cfg.ionization_vth_e)
+            if plan.ion is not None else None)
+        self.eparams = (boundaries.EmissionParams(
+            yield_=cfg.emission_yield if rp is None else rp.emission_yield,
+            vth_emit=cfg.emission_vth, weight=cfg.emission_weight)
+            if plan.see_pairs else None)
+        self.donate = donate          # the ingest writes into the input
+        self.sts = list(state.groups)
+        self.rings = list(state.rings)
+        # set by the phases: the step's pending blocks, field and sources;
+        # per group the receive buffers, [domain][queue] kept stacks,
+        # [domain] birth blocks and ring rows; per domain the carried rho;
+        # the events that every input of the queues is on main (ready) and
+        # of the domain's ring chain of queues (chain)
+        self.pend = self.e = self.ne = self.coll_dens = None
+        self.recv = self.kept = self.births = self.rrows = None
+        self.rho_acc = self.rho_out = self.ready = self.chain = None
+        self.done = []                # each queue's last event
+        self.keep = []                # tensors read across streams
+        self.contrib = []             # the queues' diagnostics
+
+    def on(self, r: int, k: int):
+        """Issue on queue (r, k)'s stream: a card's, nothing on the CPU."""
+        return (torch.cuda.stream(self.streams[(r, k)]) if self.card
+                else contextlib.nullcontext())
+
+    def record(self):
+        if not self.card:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def wait(self, ev) -> None:
+        if ev is not None:
+            torch.cuda.current_stream(self.dev).wait_event(ev)
+
+    def dacc(self, name: str | None, k: str, v: torch.Tensor) -> None:
+        self.contrib.append((f"{name}/{k}" if name else k, v))
+
+
+def make_engine_step(ecfg: EngineConfig, *, donate: bool = True,
+                     with_params: bool = False):
     """Build the async(n) step: ``step(state, draws=None) -> (state,
-    diag)`` with ``upto='full'``; an earlier ``upto`` builds a probe that
-    runs through that phase and returns ``(state, aux)`` (see ``PHASES``).
-    The full step donates its input state unless ``donate=False``; the
-    probes never do.
+    diag)``. The step donates its input state unless ``donate=False``.
 
     ``with_params=True`` builds ``step(state, params, draws=None)``: the
     ``RuntimeParams`` ``params`` supplies dt, b, the ionization rate, the
@@ -531,508 +649,484 @@ def make_engine_step(ecfg: EngineConfig, *, upto: str = "full",
     ``"collide"`` (per queue, a dict group -> the menu draws of the
     group's entries), as the reference derives them from its keys.
     """
-    if upto not in PHASES:
-        raise ValueError(f"upto must be one of {PHASES}, got {upto!r}")
-    cfg = ecfg.pic
-    d = ecfg.num_domains()
-    ncl = ecfg.local_nc()
-    ngl = ncl + 1
-    grid_local = Grid1D(nc=ncl, dx=cfg.dx)
-    l_local = ncl * cfg.dx
-    top = float(np.nextafter(np.float32(l_local), np.float32(0.0)))
-    n_q = ecfg.async_n
-    m_q = ecfg.queue_migration
-    ion = cfg.ionization
-    b_q = ecfg.queue_births if ion is not None else 0
-    carried = _carries_rho(ecfg)
-    use_ring = ecfg.use_ring
-    reb_k = ecfg.rebalance_every
-    skew_k = ecfg.rebalance_skew
-    groups = _capacity_groups(ecfg)
-    loc = _species_location(groups)
-    prows = _group_pending_rows(ecfg, groups)
-    group_caps = [ecfg.local_cap(cfg.species[idxs[0]]) for idxs in groups]
-    see_pairs = _see_pairs(cfg)
-    coll = tuple(cfg.collisions)
-    for sc in cfg.species:
-        cap_l = ecfg.local_cap(sc)
-        if cap_l % n_q != 0:
-            raise ValueError(
-                f"async_n ({n_q}) must divide the local capacity ({cap_l}) "
-                f"of species {sc.name!r}")
-    for cc in coll:
-        parts = collisions.involved_species([cc])
-        if len({loc[i][0] for i in parts}) != 1:
-            names = [cfg.species[i].name for i in parts]
-            raise ValueError(
-                f"collision {cc.kind!r} pairs species {names} across "
-                f"capacity groups; give them equal capacities to run on "
-                f"the engine")
-    strides = [sc.stride for sc in cfg.species]
-    # the menu entries of each capacity group, by their menu index
-    g_menu = [[k_m for k_m, cc in enumerate(coll) if loc[cc.species][0] == g]
-              for g in range(len(groups))]
-    consts: dict = {}          # device -> per-group (qm, dts, charges)
-    sel: dict = {}             # device -> per-group index of its species
-    streams: dict = {}         # device -> {(domain, queue): stream}
+    plan = _plan(ecfg)
+    # device -> (per-group (q/m, dt*stride, charges), per-group species
+    # index tensors, {(domain, queue): stream} on a card)
+    cache: dict = {}
 
-    def step(state: EngineState, rp: RuntimeParams | None, draws=None):
-        dev = state.groups[0].x.device
-        card = dev.type == "cuda"
-        if dev not in consts:
-            consts[dev] = [_group_consts(cfg, idxs, dev) for idxs in groups]
-            sel[dev] = [torch.tensor(idxs, device=dev) for idxs in groups]
-            if card:
-                streams[dev] = {(r, k): torch.cuda.Stream(dev)
-                                for r in range(d) for k in range(n_q)}
-        gconsts = consts[dev]
-        if rp is not None:
-            # the params' dt*stride in place of the config's; q/m*dt is
-            # formed on the device from them on both paths
-            gconsts = [(qm, rp.dts.index_select(0, ix), ch)
-                       for (qm, _, ch), ix in zip(gconsts, sel[dev])]
-        dt = cfg.dt if rp is None else rp.dt
-        b = _b_arg(cfg, rp)
-        iparams = (collisions.IonizationParams(
-            rate=cfg.ionization_rate if rp is None else rp.ionization_rate,
-            vth_electron=cfg.ionization_vth_e) if ion is not None else None)
-        eparams = (boundaries.EmissionParams(
-            yield_=cfg.emission_yield if rp is None else rp.emission_yield,
-            vth_emit=cfg.emission_vth, weight=cfg.emission_weight)
-            if see_pairs else None)
-
-        def on(r, k):
-            return (torch.cuda.stream(streams[dev][(r, k)]) if card
-                    else contextlib.nullcontext())
-
-        def record():
-            if not card:
-                return None
-            ev = torch.cuda.Event()
-            ev.record()
-            return ev
-
-        def wait(ev):
-            if ev is not None:
-                torch.cuda.current_stream(dev).wait_event(ev)
-
-        sts = list(state.groups)
-        rings = list(state.rings)
-        pend_in = list(state.pending)
-        step_i = state.step
-        inplace = donate and upto == "full"
-
-        def pack_state(rho, pend):
-            return EngineState(groups=tuple(sts),
-                               group_species=tuple(groups), gens=state.gens,
-                               key=state.key, step=step_i + 1, rho=rho,
-                               rings=tuple(rings), pending=tuple(pend))
-
-        # ---- ingest: land last step's arrivals and births in their
-        #      pre-claimed slots, then compact the domains that are due ----
-        with phase_scope("engine/ingest"):
-            due = [None] * len(groups)
-            for g in range(len(groups)):
-                if use_ring:
-                    sts[g] = _flush_pending(sts[g], pend_in[g],
-                                            inplace=inplace)
-                elif not inplace and (reb_k > 0 or skew_k > 0):
-                    sts[g] = _map(sts[g], torch.clone)
-                if reb_k > 0 and step_i > 0 and step_i % reb_k == 0:
-                    due[g] = [True] * d
-            if skew_k > 0 and step_i > 0:
-                occ = [_queue_occupancy(st.alive, n_q) for st in sts]
-                skews = torch.stack([(o.max(-1).values - o.min(-1).values)
-                                     .amax(-1) for o in occ])
-                over = (skews > skew_k).tolist()   # the one host read
-                due = [over[g] if due[g] is None
-                       else [a or b for a, b in zip(due[g], over[g])]
-                       for g in range(len(groups))]
-            for g in range(len(groups)):
-                if due[g] is None or not any(due[g]):
-                    continue
-                st, cap_g = sts[g], group_caps[g]
-                counts = None
-                for r in range(d):
-                    if not due[g][r]:
-                        continue
-                    row = _map(st, lambda a, r=r: a[r])
-                    new, alive_counts = (
-                        _cellsort_group(row, cfg.dx, ncl) if ecfg.cell_order
-                        else _compact_group(row))
-                    for f in dataclasses.fields(new):
-                        getattr(st, f.name)[r] = getattr(new, f.name)
-                    if use_ring:
-                        if counts is None:
-                            rings[g] = FreeSlotRing(
-                                slots=rings[g].slots.clone(),
-                                head=rings[g].head.clone(),
-                                count=rings[g].count.clone())
-                            counts = True
-                        fresh = ring_from_counts(alive_counts, cap_g)
-                        rings[g].slots[r] = fresh.slots
-                        rings[g].head[r] = fresh.head
-                        rings[g].count[r] = fresh.count
-        empty_pend = ([_empty_pending(d, len(idxs), prows[g], group_caps[g],
-                                      dev)
-                       for g, idxs in enumerate(groups)] if use_ring else [])
-        if upto == "ingest":
-            aux = sum(st.alive.sum((1, 2)).float() for st in sts)
-            return pack_state(state.rho, empty_pend), aux
-
-        # ---- field: halo exchange of edge nodes and scalars only ----
-        with phase_scope("engine/field"):
-            if not cfg.field_solve:
-                e = torch.zeros(d, ngl, dtype=torch.float32, device=dev)
-            else:
-                if carried and state.rho is not None:
-                    rho_local = state.rho
-                else:
-                    rho_local = torch.stack([
-                        sum(deposit_stacked(grid_local, st.x[r], st.w[r],
-                                            st.alive[r], gconsts[g][2])
-                            for g, st in enumerate(sts))
-                        for r in range(d)])
-                e = halo.field_phase(rho_local, dx=cfg.dx, eps0=cfg.eps0,
-                                     smoothing_passes=cfg.smoothing_passes)
-        if upto == "field":
-            return pack_state(state.rho, empty_pend), e
-
-        # ---- sources: the electron density of each domain (halo-summed
-        #      at the shared nodes) and the collision densities ----
-        ne = coll_dens = None
-        with phase_scope("engine/sources"):
-            if ion is not None:
-                ge, je = loc[ion[1]]
-                st = sts[ge]
-                ne = halo.halo_sum(torch.stack([
-                    deposit_windowed(grid_local, st.x[r, je],
-                                     st.w[r, je] * st.alive[r, je])
-                    for r in range(d)]))
-        if coll:
-            with phase_scope("engine/collide_setup"):
-                coll_dens = [{
-                    i: collisions.cell_density(grid_local, SpeciesBuffer(
-                        x=sts[loc[i][0]].x[r, loc[i][1]],
-                        v=sts[loc[i][0]].v[r, loc[i][1]],
-                        w=sts[loc[i][0]].w[r, loc[i][1]],
-                        alive=sts[loc[i][0]].alive[r, loc[i][1]]))
-                    for i in collisions.density_species(coll)}
-                    for r in range(d)]
-
-        with phase_scope("engine/buffers"):
-            # receive buffers of the migration packs: (D, S, n_q, 2, m_q)
-            # per group, [.., k, 0] from the left neighbour, [.., k, 1]
-            # from the right, so a domain's rows read as the reference's
-            # concatenation (q0 left, q0 right, q1 left, ...)
-            recv = [StackedSpecies(
-                x=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
-                v=torch.zeros(d, len(idxs), n_q, 2, m_q, 3, device=dev),
-                w=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
-                alive=torch.zeros(d, len(idxs), n_q, 2, m_q,
-                                  dtype=torch.bool, device=dev))
-                for idxs in groups]
-            contrib: list[tuple[str, torch.Tensor]] = []
-            kept = [[[None] * n_q for _ in range(d)] for _ in groups]
-            births = [[[] for _ in range(d)] for _ in groups]
-            # each domain's own ring rows and carried rho: a domain's chain
-            # of queues updates only these, so no stream reads another
-            # domain's
-            rrows = [[_ring_row(rg, r) for r in range(d)] for rg in rings]
-            rho_acc = [torch.zeros(ngl, dtype=torch.float32, device=dev)
-                       if carried else None for _ in range(d)]
-            done = []          # each queue's last event
-            keep = []          # tensors read across streams: held to the end
-            ready = record()   # every input of the queues is on main
-
-        def dacc(name, k, v):
-            contrib.append((f"{name}/{k}" if name else k, v))
-
-        # ---- async(n) pipeline, domain by domain: queue k's push, collide,
-        #      ionization and packing run on its own stream; its ring and
-        #      rho updates wait for queue k-1's ----
-        for r in range(d):
-            chain = None
-            gen = state.gens[r]
-            dr = None if draws is None else draws[r]
-            for g, idxs in enumerate(groups):
-                qm, dts, charges = gconsts[g]
-                st = _map(sts[g], lambda a, r=r: a[r])
-                for k in range(n_q):
-                    with on(r, k), phase_scope(f"engine/queue/q{k}"):
-                        with phase_scope(f"engine/slice/q{k}"):
-                            wait(ready)
-                            q = _queue_slice(st, n_q, k)
-                        with phase_scope(f"engine/push/q{k}"):
-                            out, _, _, pdiag, rho_k = mover.push_stacked(
-                                q, e[r], grid_local, qm, dts, b=b,
-                                boundary="open", gather_mode=cfg.gather_mode,
-                                charges=charges if carried else None)
-                            if any(strides[i] > 1 for i in idxs):
-                                do = torch.tensor(
-                                    [step_i % strides[i] == 0 for i in idxs],
-                                    device=dev)
-                                out = StackedSpecies(*(
-                                    torch.where(do.reshape(
-                                        (-1,) + (1,) * (getattr(out, f)
-                                                        .dim() - 1)),
-                                        getattr(out, f), getattr(q, f))
-                                    for f in ("x", "v", "w", "alive")))
-                                pdiag = {n: torch.where(do, v, 0)
-                                         for n, v in pdiag.items()}
-                            for j, i in enumerate(idxs):
-                                for n_, v in pdiag.items():
-                                    dacc(cfg.species[i].name, n_, v[j])
-                        if upto == "push":
-                            kept[g][r][k] = out
-                            if carried:
-                                wait(chain)
-                                rho_acc[r] = rho_acc[r] + rho_k
-                                keep.append(rho_acc[r])
-                                chain = record()
-                            done.append(record())
-                            continue
-
-                        # ---- binary collisions on this queue ----
-                        g_coll = [coll[k_m] for k_m in g_menu[g]]
-                        if g_coll:
-                            with phase_scope(f"engine/collide/q{k}"):
-                                rows_c = collisions.involved_species(g_coll)
-                                cbufs = {i: SpeciesBuffer(
-                                    x=out.x[idxs.index(i)],
-                                    v=out.v[idxs.index(i)],
-                                    w=out.w[idxs.index(i)],
-                                    alive=out.alive[idxs.index(i)])
-                                    for i in rows_c}
-                                cdraws = (None if dr is None
-                                          else dr["collide"][k][g])
-                                cbufs, cdiag = collisions.apply_menu(
-                                    gen, cbufs, g_coll, coll_dens[r],
-                                    grid_local, dt, cfg.collide_kernel,
-                                    cdraws, rates=None if rp is None else
-                                    [rp.collision_rates[k_m]
-                                     for k_m in g_menu[g]])
-                                for i, cb in cbufs.items():
-                                    out.v[idxs.index(i)] = cb.v
-                                for ck, cv in cdiag.items():
-                                    dacc(None, ck, cv)
-                        if upto == "collide":
-                            kept[g][r][k] = out
-                            if carried:
-                                wait(chain)
-                                rho_acc[r] = rho_acc[r] + rho_k
-                                keep.append(rho_acc[r])
-                                chain = record()
-                            done.append(record())
-                            continue
-
-                        # ---- MC ionization: events and the packed rows
-                        #      (the kills wait for the ring) ----
-                        pack = None
-                        if ion is not None and ion[0] in idxs:
-                            with phase_scope(f"engine/ionize/q{k}"):
-                                jn = idxs.index(ion[0])
-                                qn = SpeciesBuffer(
-                                    x=out.x[jn], v=out.v[jn], w=out.w[jn],
-                                    alive=out.alive[jn])
-                                pack = collisions.ionize_packed(
-                                    gen, qn, grid_local, iparams, dt,
-                                    ne[r], b_q,
-                                    None if dr is None else dr["ionize"][k])
-
-                        # ---- migration packs (the crossers are outside
-                        #      the slab, so no ionized neutral is one) ----
-                        with phase_scope(f"engine/migrate/q{k}"):
-                            (kq, pack_l, pack_r, lv_x, lv_w, free_idx,
-                             free_ok, abs_l, abs_r, dmig) = _exchange_queue(
-                                out, l_local, m_q, cfg.boundary, r == 0,
-                                r == d - 1, top)
-                            lv_rho = (deposit_windowed(
-                                grid_local, lv_x, charges[:, None] * lv_w)
-                                if carried else None)
-                            # the copies to the neighbours, on this stream
-                            halo.send(recv[g], ((r + 1) % d, slice(None), k,
-                                                0), pack_r)
-                            halo.send(recv[g], ((r - 1) % d, slice(None), k,
-                                                1), pack_l)
-                            for j, i in enumerate(idxs):
-                                for n_, v in dmig.items():
-                                    dacc(cfg.species[i].name, n_, v[j])
-
-                        # ---- ring and rho updates, in queue order ----
-                        # (births and SEE claim ring rows inside the turn)
-                        with phase_scope(f"engine/ring/q{k}"):
-                            wait(chain)
-                            keep.append([rr[r] for rr in rrows])
-                            if pack is not None:
-                                with phase_scope(f"engine/births/q{k}"):
-                                    kq = _ionize_rows(
-                                        kq, pack, idxs, g, k, r, rrows,
-                                        births, use_ring, loc, groups,
-                                        group_caps, n_q, b_q, ion, dacc, dev)
-                            if use_ring:
-                                rrows[g][r] = ring_push(
-                                    rrows[g][r], free_idx * n_q + k, free_ok)
-                            for pi, (p_, t_) in enumerate(see_pairs):
-                                if p_ not in idxs:
-                                    continue
-                                with phase_scope(f"engine/see/q{k}"):
-                                    jp = idxs.index(p_)
-                                    emit, ex, ev, ew = \
-                                        boundaries.emission_candidates(
-                                            gen, abs_l[jp], abs_r[jp], eparams,
-                                            l_local, torch.float32,
-                                            None if dr is None
-                                            else dr["see"][pi][k])
-                                    gt, jt = loc[t_]
-                                    if use_ring:
-                                        rrows[gt][r], dstm, okm = _claim_rows(
-                                            rrows[gt][r], {jt: emit},
-                                            group_caps[gt])
-                                        ok_t, dest_t = okm[jt], dstm[jt]
-                                    else:
-                                        ok_t, dest_t = emit, None
-                                    births[gt][r].append(_birth_block(
-                                        len(groups[gt]), 2 * m_q,
-                                        group_caps[gt], dev,
-                                        {jt: (ex, ev, ew, ok_t, dest_t)}))
-                                    name = cfg.species[t_].name
-                                    dacc(name, "emitted",
-                                         ok_t.sum(dtype=torch.int32))
-                                    dacc(name, "emission_overflow",
-                                         (emit & ~ok_t).sum(dtype=torch.int32))
-                            if carried:
-                                rho_acc[r] = (rho_acc[r] + rho_k) - lv_rho
-                                keep.append(rho_acc[r])
-                            kept[g][r][k] = kq
-                            chain = record()
-                            done.append(chain)
-                    keep.append(st)
-
-        # ---- the merge waits for every queue (depend(in)) ----
-        with phase_scope("engine/join"):
-            for ev in done:
-                wait(ev)
-            rings = [FreeSlotRing(
-                slots=rg.slots, head=torch.stack([rr.head for rr in rows]),
-                count=torch.stack([rr.count for rr in rows]))
-                for rg, rows in zip(rings, rrows)]
-        if upto in ("push", "collide", "migrate"):
-            for g in range(len(groups)):
-                sts[g] = _merged(sts[g], kept[g], n_q)
-            rho_out = torch.stack(rho_acc) if carried else state.rho
-            return pack_state(rho_out, empty_pend), e
-
-        pend_out = list(empty_pend)
-        with phase_scope("engine/merge"):
-            for g, idxs in enumerate(groups):
-                charges = gconsts[g][2]
-                cap_g = group_caps[g]
-                full = _merged(sts[g], kept[g], n_q)
-                s = len(idxs)
-                cand = _map(recv[g], lambda a: a.reshape(
-                    (d, s, 2 * ecfg.max_migration) + tuple(a.shape[5:])))
-                blocks = [PendingArrivals(*(
-                    torch.stack([torch.cat([getattr(b, f) for b in
-                                            births[g][r]], 1)
-                                 for r in range(d)])
-                    for f in ("x", "v", "w", "alive", "dest")))] \
-                    if births[g][0] else []
-                if use_ring:
-                    rings[g], dest, accepted = ring_claim(
-                        rings[g], cand.alive, cap_g)
-                    pend_g = PendingArrivals(
-                        x=cand.x, v=cand.v, w=cand.w * accepted,
-                        alive=cand.alive & accepted, dest=dest)
-                    if blocks:
-                        pend_g = PendingArrivals(*(
-                            torch.cat([getattr(pend_g, f),
-                                       getattr(blocks[0], f)], 2)
-                            for f in ("x", "v", "w", "alive", "dest")))
-                    pend_out[g] = pend_g
-                    dropped = (cand.alive & ~accepted).sum(
-                        -1, dtype=torch.int32)
-                    sts[g] = full
-                    dep_rows = pend_g
-                    dep_w = pend_g.w * pend_g.alive
-                else:
-                    cand_all = cand if not blocks else StackedSpecies(*(
-                        torch.cat([getattr(cand, f), getattr(blocks[0], f)],
-                                  2) for f in ("x", "v", "w", "alive")))
-                    merged, dropped, accepted = _inject_rows(full, cand_all)
-                    sts[g] = merged
-                    dep_rows = cand_all
-                    dep_w = cand_all.w * accepted
-                if carried:
-                    for r in range(d):
-                        rho_acc[r] = rho_acc[r] + deposit_windowed(
-                            grid_local, dep_rows.x[r],
-                            charges[:, None] * dep_w[r])
-                for j, i in enumerate(idxs):
-                    dacc(cfg.species[i].name, "merge_dropped",
-                         dropped[:, j].sum())
-        rho_out = torch.stack(rho_acc) if carried else state.rho
-        if upto == "merge":
-            return pack_state(rho_out, pend_out), e
-
-        # ---- diagnostics over the resident rows plus the pending ones ----
-        with phase_scope("engine/diag"):
-            diag: dict = {}
-            for key, v in contrib:
-                diag[key] = diag[key] + v if key in diag else v
-            for i, sc in enumerate(cfg.species):
-                g, j = loc[i]
-                st = sts[g]
-                alive, w, v = st.alive[:, j], st.w[:, j], st.v[:, j]
-                count = alive.sum(dtype=torch.int32)
-                wsum = _sum64(alive, w)
-                ke = _sum64(alive, (v * v).sum(-1) * w)
-                occ = _queue_occupancy(alive, n_q)          # (D, n_q)
-                if use_ring:
-                    p = pend_out[g]
-                    pa = p.alive[:, j]
-                    count = count + pa.sum(dtype=torch.int32)
-                    wsum = wsum + _sum64(pa, p.w[:, j])
-                    ke = ke + _sum64(pa, (p.v[:, j] * p.v[:, j]).sum(-1)
-                                     * p.w[:, j])
-                    q_of = torch.where(pa, p.dest[:, j].long() % n_q, n_q)
-                    hist = torch.zeros(d, n_q + 1, dtype=torch.int32,
-                                       device=dev)
-                    hist.scatter_add_(1, q_of, torch.ones_like(
-                        q_of, dtype=torch.int32))
-                    occ = occ + hist[:, :n_q]
-                diag[f"{sc.name}/count"] = count
-                diag[f"{sc.name}/ke"] = 0.5 * sc.mass * ke
-                diag[f"{sc.name}/charge"] = sc.charge * wsum
-                diag[f"{sc.name}/queue_occ"] = occ.sum(0)
-                diag[f"{sc.name}/queue_skew"] = (occ.max(-1).values
-                                                 - occ.min(-1).values).max()
-                if ecfg.metrics and use_ring:
-                    diag[f"{sc.name}/ring_free"] = rings[g].count[:, j].sum()
-                    diag[f"{sc.name}/pending_rows"] = pend_out[g].alive[
-                        :, j].sum(dtype=torch.int32)
-        out = pack_state(rho_out, pend_out)
-        with phase_scope("engine/release"):
-            # the step's working set (~900 tensors) is freed here, in a
-            # scope, rather than unranged as the frame unwinds
-            for held in (keep, kept, births, contrib, recv, rrows, rho_acc,
-                         done):
-                held.clear()
-        return out, diag
+    def step(state: EngineState, params: RuntimeParams | None, draws=None):
+        with phase_scope("engine/step"):
+            w = _Work(plan, cache, state, params, draws, donate)
+            _ingest(plan, w)
+            _field(plan, w)
+            _sources(plan, w)
+            _buffers(plan, w)
+            # the async(n) pipeline, domain by domain: queue k's push,
+            # collide, ionization and packing run on its own stream; its
+            # ring and rho updates wait for queue k-1's
+            for r in range(plan.d):
+                w.chain = None
+                for g in range(len(plan.groups)):
+                    st = _map(w.sts[g], lambda a, r=r: a[r])
+                    for k in range(plan.n_q):
+                        _queue_turn(plan, w, r, g, k, st)
+                    w.keep.append(st)
+            _join(plan, w)
+            _merge(plan, w)
+            diag = _diag(plan, w)
+            out = EngineState(
+                groups=tuple(w.sts), group_species=plan.groups,
+                gens=state.gens, key=state.key, step=state.step + 1,
+                rho=w.rho_out, rings=tuple(w.rings), pending=tuple(w.pend))
+            _release(w)
+            return out, diag
 
     if with_params:
-        def step_params(state: EngineState, params: RuntimeParams,
-                        draws=None):
-            with phase_scope("engine/step"):
-                return step(state, params, draws)
-
-        return step_params
+        return step
 
     def step_static(state: EngineState, draws=None):
-        with phase_scope("engine/step"):
-            return step(state, None, draws)
+        return step(state, None, draws)
 
     return step_static
+
+
+def _ingest(plan: _Plan, w: _Work) -> None:
+    """Land last step's arrivals and births in their pre-claimed slots,
+    then compact the domains that are due: every ``rebalance_every`` steps,
+    and where a domain's queue occupancy skews past ``rebalance_skew`` (the
+    step's one host read). Opens the step's empty pending blocks."""
+    ecfg, sts, step_i = plan.ecfg, w.sts, w.state.step
+    reb_k, skew_k = ecfg.rebalance_every, ecfg.rebalance_skew
+    ngr = len(plan.groups)
+    with phase_scope("engine/ingest"):
+        due = [None] * ngr
+        for g in range(ngr):
+            if ecfg.use_ring:
+                sts[g] = _flush_pending(sts[g], w.state.pending[g],
+                                        inplace=w.donate)
+            elif not w.donate and (reb_k > 0 or skew_k > 0):
+                sts[g] = _map(sts[g], torch.clone)
+            if reb_k > 0 and step_i > 0 and step_i % reb_k == 0:
+                due[g] = [True] * plan.d
+        if skew_k > 0 and step_i > 0:
+            occ = [_queue_occupancy(st.alive, plan.n_q) for st in sts]
+            skews = torch.stack([(o.max(-1).values - o.min(-1).values)
+                                 .amax(-1) for o in occ])
+            over = (skews > skew_k).tolist()   # the one host read
+            due = [over[g] if due[g] is None
+                   else [a or b for a, b in zip(due[g], over[g])]
+                   for g in range(ngr)]
+        cell = (plan.cfg.dx, plan.grid.nc) if ecfg.cell_order else None
+        for g in range(ngr):
+            for r in range(plan.d):
+                if not (due[g] and due[g][r]):
+                    continue
+                # compact domain r's rows in place, and rebuild its ring
+                # rows (the group's ring copied once) from the counts
+                row = _map(sts[g], lambda a, r=r: a[r])
+                new, alive_counts = _compact_group(row, cell)
+                for f in dataclasses.fields(new):
+                    getattr(sts[g], f.name)[r] = getattr(new, f.name)
+                if not ecfg.use_ring:
+                    continue
+                if w.rings[g] is w.state.rings[g]:
+                    w.rings[g] = _map(w.rings[g], torch.clone)
+                fresh = ring_from_counts(alive_counts, plan.caps[g])
+                for f in dataclasses.fields(fresh):
+                    getattr(w.rings[g], f.name)[r] = getattr(fresh, f.name)
+    w.pend = ([_empty_pending((plan.d, len(idxs), plan.prows[g]),
+                              plan.caps[g], w.dev)
+               for g, idxs in enumerate(plan.groups)]
+              if ecfg.use_ring else [])
+
+
+def _field(plan: _Plan, w: _Work) -> None:
+    """The field: a halo exchange of edge nodes and scalars only."""
+    cfg = plan.cfg
+    with phase_scope("engine/field"):
+        if not cfg.field_solve:
+            w.e = torch.zeros(plan.d, plan.grid.ng, dtype=torch.float32,
+                              device=w.dev)
+            return
+        if plan.carried and w.state.rho is not None:
+            rho_local = w.state.rho
+        else:
+            rho_local = _domain_rho(plan.grid, w.sts,
+                                    [c[2] for c in w.gconsts])
+        w.e = halo.field_phase(rho_local, dx=cfg.dx, eps0=cfg.eps0,
+                               smoothing_passes=cfg.smoothing_passes)
+
+
+def _sources(plan: _Plan, w: _Work) -> None:
+    """The electron density of each domain (halo-summed at the shared
+    nodes) and the collision densities."""
+    sts, loc = w.sts, plan.loc
+    with phase_scope("engine/sources"):
+        if plan.ion is not None:
+            ge, je = loc[plan.ion[1]]
+            st = sts[ge]
+            w.ne = halo.halo_sum(torch.stack([
+                deposit_windowed(plan.grid, st.x[r, je],
+                                 st.w[r, je] * st.alive[r, je])
+                for r in range(plan.d)]))
+    if plan.cfg.collisions:
+        with phase_scope("engine/collide_setup"):
+            w.coll_dens = [{
+                i: collisions.cell_density(plan.grid, SpeciesBuffer(
+                    x=sts[loc[i][0]].x[r, loc[i][1]],
+                    v=sts[loc[i][0]].v[r, loc[i][1]],
+                    w=sts[loc[i][0]].w[r, loc[i][1]],
+                    alive=sts[loc[i][0]].alive[r, loc[i][1]]))
+                for i in collisions.density_species(plan.cfg.collisions)}
+                for r in range(plan.d)]
+
+
+def _buffers(plan: _Plan, w: _Work) -> None:
+    """The step's receive buffers, ring rows and carried rho."""
+    d, n_q, m_q, dev = plan.d, plan.n_q, plan.m_q, w.dev
+    with phase_scope("engine/buffers"):
+        # receive buffers of the migration packs: (D, S, n_q, 2, m_q)
+        # per group, [.., k, 0] from the left neighbour, [.., k, 1]
+        # from the right, so a domain's rows read as the reference's
+        # concatenation (q0 left, q0 right, q1 left, ...)
+        w.recv = [StackedSpecies(
+            x=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
+            v=torch.zeros(d, len(idxs), n_q, 2, m_q, 3, device=dev),
+            w=torch.zeros(d, len(idxs), n_q, 2, m_q, device=dev),
+            alive=torch.zeros(d, len(idxs), n_q, 2, m_q,
+                              dtype=torch.bool, device=dev))
+            for idxs in plan.groups]
+        w.kept = [[[None] * n_q for _ in range(d)] for _ in plan.groups]
+        w.births = [[[] for _ in range(d)] for _ in plan.groups]
+        # each domain's own ring rows and carried rho: a domain's chain
+        # of queues updates only these, so no stream reads another
+        # domain's
+        w.rrows = [[_map(rg, lambda a, r=r: a[r]) for r in range(d)]
+                   for rg in w.rings]
+        w.rho_acc = [torch.zeros(plan.grid.ng, dtype=torch.float32,
+                                 device=dev) if plan.carried else None
+                     for _ in range(d)]
+        w.ready = w.record()
+
+
+def _queue_turn(plan: _Plan, w: _Work, r, g, k, st: StackedSpecies):
+    """Queue k of group g on domain r, on the queue's stream: its slice of
+    ``st`` (the group's row of the domain) is pushed, collided, ionized
+    and packed, then takes its turn in the domain's ring chain."""
+    with w.on(r, k), phase_scope(f"engine/queue/q{k}"):
+        with phase_scope(f"engine/slice/q{k}"):
+            w.wait(w.ready)
+            q = _queue_slice(st, plan.n_q, k)
+        out, rho_k = _push(plan, w, r, g, k, q)
+        _collide(plan, w, r, g, k, out)
+        pack = _ionize(plan, w, r, g, k, out)
+        mig = _migrate(plan, w, r, g, k, out)
+        _ring(plan, w, r, g, k, pack, mig, rho_k)
+
+
+def _push(plan: _Plan, w: _Work, r, g, k, q: StackedSpecies):
+    """The fused push of a queue (open walls: the crossers wait for the
+    migration), each sub-cycled species held where its stride skips this
+    step. Returns the pushed queue and its carried-rho deposit."""
+    cfg, idxs = plan.cfg, plan.groups[g]
+    qm, dts, charges = w.gconsts[g]
+    with phase_scope(f"engine/push/q{k}"):
+        out, _, _, pdiag, rho_k = mover.push_stacked(
+            q, w.e[r], plan.grid, qm, dts, b=w.b, boundary="open",
+            gather_mode=cfg.gather_mode,
+            charges=charges if plan.carried else None)
+        strides = [cfg.species[i].stride for i in idxs]
+        if any(s > 1 for s in strides):
+            do = torch.tensor([w.state.step % s == 0 for s in strides],
+                              device=w.dev)
+            out = StackedSpecies(*(
+                torch.where(do.reshape((-1,) + (1,) * (getattr(out, f)
+                                                       .dim() - 1)),
+                            getattr(out, f), getattr(q, f))
+                for f in ("x", "v", "w", "alive")))
+            pdiag = {n: torch.where(do, v, 0) for n, v in pdiag.items()}
+        for j, i in enumerate(idxs):
+            for n_, v in pdiag.items():
+                w.dacc(cfg.species[i].name, n_, v[j])
+    return out, rho_k
+
+
+def _collide(plan: _Plan, w: _Work, r, g, k, out: StackedSpecies):
+    """The group's binary collisions on a pushed queue: the deflected
+    velocities are written back into ``out``."""
+    menu = plan.g_menu[g]
+    if not menu:
+        return
+    idxs = plan.groups[g]
+    g_coll = [plan.cfg.collisions[k_m] for k_m in menu]
+    with phase_scope(f"engine/collide/q{k}"):
+        rows_c = collisions.involved_species(g_coll)
+        cbufs = {i: SpeciesBuffer(
+            x=out.x[idxs.index(i)], v=out.v[idxs.index(i)],
+            w=out.w[idxs.index(i)], alive=out.alive[idxs.index(i)])
+            for i in rows_c}
+        cdraws = None if w.draws is None else w.draws[r]["collide"][k][g]
+        cbufs, cdiag = collisions.apply_menu(
+            w.state.gens[r], cbufs, g_coll, w.coll_dens[r], plan.grid, w.dt,
+            plan.cfg.collide_kernel, cdraws,
+            rates=None if w.rp is None else [w.rp.collision_rates[k_m]
+                                             for k_m in menu])
+        for i, cb in cbufs.items():
+            out.v[idxs.index(i)] = cb.v
+        for ck, cv in cdiag.items():
+            w.dacc(None, ck, cv)
+
+
+def _ionize(plan: _Plan, w: _Work, r, g, k, out: StackedSpecies):
+    """MC ionization of a pushed queue's neutrals: the events and the
+    packed rows, None where the group holds no neutrals. The kills wait
+    for the ring (``_ionize_rows``)."""
+    idxs = plan.groups[g]
+    if plan.ion is None or plan.ion[0] not in idxs:
+        return None
+    with phase_scope(f"engine/ionize/q{k}"):
+        jn = idxs.index(plan.ion[0])
+        qn = SpeciesBuffer(x=out.x[jn], v=out.v[jn], w=out.w[jn],
+                           alive=out.alive[jn])
+        return collisions.ionize_packed(
+            w.state.gens[r], qn, plan.grid, w.iparams, w.dt, w.ne[r],
+            plan.b_q, None if w.draws is None else w.draws[r]["ionize"][k])
+
+
+def _migrate(plan: _Plan, w: _Work, r, g, k, out: StackedSpecies):
+    """A pushed queue's migration packs, copied into the neighbours'
+    receive buffers on this stream (the crossers are outside the slab, so
+    no ionized neutral is one). Returns (kept queue, freed slots, freed
+    ok, absorbed left, absorbed right, the leavers' rho or None)."""
+    cfg, idxs = plan.cfg, plan.groups[g]
+    with phase_scope(f"engine/migrate/q{k}"):
+        (kq, pack_l, pack_r, lv_x, lv_w, free_idx, free_ok, abs_l, abs_r,
+         dmig) = _exchange_queue(out, plan.grid.length, plan.m_q,
+                                 cfg.boundary, r == 0, r == plan.d - 1,
+                                 plan.top)
+        lv_rho = (deposit_windowed(plan.grid, lv_x,
+                                   w.gconsts[g][2][:, None] * lv_w)
+                  if plan.carried else None)
+        # the copies to the neighbours, on this stream
+        halo.send(w.recv[g], ((r + 1) % plan.d, slice(None), k, 0), pack_r)
+        halo.send(w.recv[g], ((r - 1) % plan.d, slice(None), k, 1), pack_l)
+        for j, i in enumerate(idxs):
+            for n_, v in dmig.items():
+                w.dacc(cfg.species[i].name, n_, v[j])
+    return kq, free_idx, free_ok, abs_l, abs_r, lv_rho
+
+
+def _ring(plan: _Plan, w: _Work, r, g, k, pack, mig: tuple, rho_k):
+    """A queue's turn in its domain's ring chain, after queue k-1's: the
+    births and SEE claim ring rows, the freed slots go back, the carried
+    rho takes the queue's deposit less its leavers'."""
+    kq, free_idx, free_ok, abs_l, abs_r, lv_rho = mig
+    idxs, use_ring = plan.groups[g], plan.ecfg.use_ring
+    with phase_scope(f"engine/ring/q{k}"):
+        w.wait(w.chain)
+        w.keep.append([rr[r] for rr in w.rrows])
+        if pack is not None:
+            with phase_scope(f"engine/births/q{k}"):
+                kq = _ionize_rows(plan, w, r, g, k, kq, pack)
+        if use_ring:
+            w.rrows[g][r] = ring_push(w.rrows[g][r],
+                                      free_idx * plan.n_q + k, free_ok)
+        for pi, (p_, t_) in enumerate(plan.see_pairs):
+            if p_ not in idxs:
+                continue
+            with phase_scope(f"engine/see/q{k}"):
+                jp = idxs.index(p_)
+                emit, ex, ev, ew = boundaries.emission_candidates(
+                    w.state.gens[r], abs_l[jp], abs_r[jp], w.eparams,
+                    plan.grid.length, torch.float32,
+                    None if w.draws is None else w.draws[r]["see"][pi][k])
+                gt, jt = plan.loc[t_]
+                if use_ring:
+                    w.rrows[gt][r], dstm, okm = _claim_rows(
+                        w.rrows[gt][r], {jt: emit}, plan.caps[gt])
+                    ok_t, dest_t = okm[jt], dstm[jt]
+                else:
+                    ok_t, dest_t = emit, None
+                w.births[gt][r].append(_birth_block(
+                    len(plan.groups[gt]), 2 * plan.m_q, plan.caps[gt], w.dev,
+                    {jt: (ex, ev, ew, ok_t, dest_t)}))
+                name = plan.cfg.species[t_].name
+                w.dacc(name, "emitted", ok_t.sum(dtype=torch.int32))
+                w.dacc(name, "emission_overflow",
+                       (emit & ~ok_t).sum(dtype=torch.int32))
+        if plan.carried:
+            w.rho_acc[r] = (w.rho_acc[r] + rho_k) - lv_rho
+            w.keep.append(w.rho_acc[r])
+        w.kept[g][r][k] = kq
+        w.chain = w.record()
+        w.done.append(w.chain)
+
+
+def _ionize_rows(plan: _Plan, w: _Work, r, g, k, kq: StackedSpecies, pack):
+    """One queue's ionization after its ring turn: claim an electron and
+    an ion slot per birth under the shared min-count budget (a birth gets
+    both or neither), push the freed neutral slots, kill the neutrals and
+    hold the births as pending blocks. Returns the queue's stack."""
+    ni, ei, ii = plan.ion
+    jn = plan.groups[g].index(ni)
+    (ge, je), (gi, ji) = plan.loc[ei], plan.loc[ii]
+    rrows, caps = w.rrows, plan.caps
+    if plan.ecfg.use_ring:
+        avail = torch.minimum(rrows[ge][r].count[je], rrows[gi][r].count[ji])
+        if ge == gi:
+            rrows[ge][r], dest, okm = _claim_rows(
+                rrows[ge][r], {je: pack.ok, ji: pack.ok}, caps[ge], avail)
+            allowed = okm[je]
+            dest_e, dest_i = dest[je], dest[ji]
+        else:
+            rrows[ge][r], de, oe = _claim_rows(
+                rrows[ge][r], {je: pack.ok}, caps[ge], avail)
+            rrows[gi][r], di, _ = _claim_rows(
+                rrows[gi][r], {ji: pack.ok}, caps[gi], avail)
+            allowed = oe[je]
+            dest_e, dest_i = de[je], di[ji]
+        # freed neutral slots feed the ring (queue slot j -> j * n_q + k)
+        idx, ok = _row_tables(rrows[g][r],
+                              {jn: (pack.slot * plan.n_q + k, allowed)},
+                              (torch.int32, torch.bool))
+        rrows[g][r] = ring_push(rrows[g][r], idx, ok)
+    else:
+        allowed = pack.ok
+        dest_e = dest_i = None
+    killed = kill_packed(SpeciesBuffer(x=kq.x[jn], v=kq.v[jn], w=kq.w[jn],
+                                       alive=kq.alive[jn]),
+                         pack.slot, allowed)
+    alive = kq.alive.clone()
+    wts = kq.w.clone()
+    alive[jn] = killed.alive
+    wts[jn] = killed.w
+    kq = StackedSpecies(x=kq.x, v=kq.v, w=wts, alive=alive)
+    # one birth block a group: both rows in one when the groups are one
+    rows = {ge: {}, gi: {}}
+    rows[ge][je] = (pack.x, pack.v_electron, pack.w, allowed, dest_e)
+    rows[gi][ji] = (pack.x, pack.v_ion, pack.w, allowed, dest_i)
+    for gb, rows_b in rows.items():
+        w.births[gb][r].append(_birth_block(len(plan.groups[gb]), plan.b_q,
+                                            caps[gb], w.dev, rows_b))
+    n_born = allowed.sum(dtype=torch.int32)
+    w.dacc(None, "n_ionized", n_born)
+    w.dacc(None, "birth_overflow", pack.n_events - n_born)
+    return kq
+
+
+def _join(plan: _Plan, w: _Work) -> None:
+    """The merge waits for every queue (``depend(in)``); the domains' ring
+    rows are stacked back into the group rings."""
+    with phase_scope("engine/join"):
+        for ev in w.done:
+            w.wait(ev)
+        w.rings = [FreeSlotRing(
+            slots=rg.slots, head=torch.stack([rr.head for rr in rows]),
+            count=torch.stack([rr.count for rr in rows]))
+            for rg, rows in zip(w.rings, w.rrows)]
+
+
+def _merge(plan: _Plan, w: _Work) -> None:
+    """The deferred merge: every group's queues interleaved back, its
+    received rows and births claimed into pending blocks (the legacy mode
+    injects them), their charge added to the carried rho."""
+    d = plan.d
+    with phase_scope("engine/merge"):
+        for g, idxs in enumerate(plan.groups):
+            charges = w.gconsts[g][2]
+            full = _merged(w.sts[g], w.kept[g], plan.n_q)
+            s = len(idxs)
+            cand = _map(w.recv[g], lambda a: a.reshape(
+                (d, s, 2 * plan.ecfg.max_migration) + tuple(a.shape[5:])))
+            blocks = [PendingArrivals(*(
+                torch.stack([torch.cat([getattr(b, f) for b in
+                                        w.births[g][r]], 1)
+                             for r in range(d)])
+                for f in _PENDING_FIELDS))] if w.births[g][0] else []
+            if plan.ecfg.use_ring:
+                w.rings[g], dest, accepted = ring_claim(
+                    w.rings[g], cand.alive, plan.caps[g])
+                pend_g = PendingArrivals(
+                    x=cand.x, v=cand.v, w=cand.w * accepted,
+                    alive=cand.alive & accepted, dest=dest)
+                if blocks:
+                    pend_g = PendingArrivals(*(
+                        torch.cat([getattr(pend_g, f),
+                                   getattr(blocks[0], f)], 2)
+                        for f in _PENDING_FIELDS))
+                w.pend[g] = pend_g
+                dropped = (cand.alive & ~accepted).sum(-1, dtype=torch.int32)
+                w.sts[g] = full
+                dep_rows = pend_g
+                dep_w = pend_g.w * pend_g.alive
+            else:
+                cand_all = cand if not blocks else StackedSpecies(*(
+                    torch.cat([getattr(cand, f), getattr(blocks[0], f)], 2)
+                    for f in _SPECIES_FIELDS))
+                merged, dropped, accepted = _inject_rows(full, cand_all)
+                w.sts[g] = merged
+                dep_rows = cand_all
+                dep_w = cand_all.w * accepted
+            if plan.carried:
+                for r in range(d):
+                    w.rho_acc[r] = w.rho_acc[r] + deposit_windowed(
+                        plan.grid, dep_rows.x[r], charges[:, None] * dep_w[r])
+            for j, i in enumerate(idxs):
+                w.dacc(plan.cfg.species[i].name, "merge_dropped",
+                       dropped[:, j].sum())
+    w.rho_out = torch.stack(w.rho_acc) if plan.carried else w.state.rho
+
+
+def _diag(plan: _Plan, w: _Work) -> dict:
+    """The step's diagnostics: the queues' counters summed, and each
+    species' count, energy, charge and queue occupancy over the resident
+    rows plus the pending ones."""
+    n_q, use_ring = plan.n_q, plan.ecfg.use_ring
+    with phase_scope("engine/diag"):
+        diag: dict = {}
+        for key, v in w.contrib:
+            diag[key] = diag[key] + v if key in diag else v
+        for i, sc in enumerate(plan.cfg.species):
+            g, j = plan.loc[i]
+            st = w.sts[g]
+            alive, wt, v = st.alive[:, j], st.w[:, j], st.v[:, j]
+            count = alive.sum(dtype=torch.int32)
+            wsum = _sum64(alive, wt)
+            ke = _sum64(alive, (v * v).sum(-1) * wt)
+            occ = _queue_occupancy(alive, n_q)          # (D, n_q)
+            if use_ring:
+                p = w.pend[g]
+                pa = p.alive[:, j]
+                count = count + pa.sum(dtype=torch.int32)
+                wsum = wsum + _sum64(pa, p.w[:, j])
+                ke = ke + _sum64(pa, (p.v[:, j] * p.v[:, j]).sum(-1)
+                                 * p.w[:, j])
+                q_of = torch.where(pa, p.dest[:, j].long() % n_q, n_q)
+                hist = torch.zeros(plan.d, n_q + 1, dtype=torch.int32,
+                                   device=w.dev)
+                hist.scatter_add_(1, q_of, torch.ones_like(
+                    q_of, dtype=torch.int32))
+                occ = occ + hist[:, :n_q]
+            diag[f"{sc.name}/count"] = count
+            diag[f"{sc.name}/ke"] = 0.5 * sc.mass * ke
+            diag[f"{sc.name}/charge"] = sc.charge * wsum
+            diag[f"{sc.name}/queue_occ"] = occ.sum(0)
+            diag[f"{sc.name}/queue_skew"] = (occ.max(-1).values
+                                             - occ.min(-1).values).max()
+            if plan.ecfg.metrics and use_ring:
+                diag[f"{sc.name}/ring_free"] = w.rings[g].count[:, j].sum()
+                diag[f"{sc.name}/pending_rows"] = w.pend[g].alive[
+                    :, j].sum(dtype=torch.int32)
+    return diag
+
+
+def _release(w: _Work) -> None:
+    """Free the step's working set (~900 tensors) in a scope, rather than
+    unranged as the frame unwinds."""
+    with phase_scope("engine/release"):
+        for held in (w.keep, w.kept, w.births, w.contrib, w.recv, w.rrows,
+                     w.rho_acc, w.done):
+            held.clear()
 
 
 def _sum64(mask: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -1073,76 +1167,6 @@ def _inject_rows(full: StackedSpecies, cand: StackedSpecies):
     return out, dropped, accepted
 
 
-def _ionize_rows(kq, pack, idxs, g, k, r, rrows, births, use_ring, loc,
-                 groups, group_caps, n_q, b_q, ion, dacc, dev):
-    """One queue's ionization after its ring turn: claim an electron and
-    an ion slot per birth under the shared min-count budget (a birth gets
-    both or neither), push the freed neutral slots, kill the neutrals and
-    hold the births as pending blocks. Returns the queue's stack."""
-    ni, ei, ii = ion
-    jn = idxs.index(ni)
-    (ge, je), (gi, ji) = loc[ei], loc[ii]
-    if use_ring:
-        avail = torch.minimum(rrows[ge][r].count[je], rrows[gi][r].count[ji])
-        if ge == gi:
-            rrows[ge][r], dest, okm = _claim_rows(
-                rrows[ge][r], {je: pack.ok, ji: pack.ok}, group_caps[ge],
-                avail)
-            allowed = okm[je]
-            dest_e, dest_i = dest[je], dest[ji]
-        else:
-            rrows[ge][r], de, oe = _claim_rows(
-                rrows[ge][r], {je: pack.ok}, group_caps[ge], avail)
-            rrows[gi][r], di, _ = _claim_rows(
-                rrows[gi][r], {ji: pack.ok}, group_caps[gi], avail)
-            allowed = oe[je]
-            dest_e, dest_i = de[je], di[ji]
-        # freed neutral slots feed the ring (queue slot j -> j * n_q + k)
-        rrows[g][r] = _push_rows(rrows[g][r],
-                                 {jn: (pack.slot * n_q + k, allowed)}, b_q)
-    else:
-        allowed = pack.ok
-        dest_e = dest_i = None
-    killed = kill_packed(SpeciesBuffer(x=kq.x[jn], v=kq.v[jn], w=kq.w[jn],
-                                       alive=kq.alive[jn]),
-                         pack.slot, allowed)
-    alive = kq.alive.clone()
-    w = kq.w.clone()
-    alive[jn] = killed.alive
-    w[jn] = killed.w
-    kq = StackedSpecies(x=kq.x, v=kq.v, w=w, alive=alive)
-    e_row = (pack.x, pack.v_electron, pack.w, allowed, dest_e)
-    i_row = (pack.x, pack.v_ion, pack.w, allowed, dest_i)
-    if ge == gi:
-        births[ge][r].append(_birth_block(len(groups[ge]), b_q,
-                                          group_caps[ge], dev,
-                                          {je: e_row, ji: i_row}))
-    else:
-        births[ge][r].append(_birth_block(len(groups[ge]), b_q,
-                                          group_caps[ge], dev, {je: e_row}))
-        births[gi][r].append(_birth_block(len(groups[gi]), b_q,
-                                          group_caps[gi], dev, {ji: i_row}))
-    n_born = allowed.sum(dtype=torch.int32)
-    dacc(None, "n_ionized", n_born)
-    dacc(None, "birth_overflow", pack.n_events - n_born)
-    return kq
-
-
-def _engine_extras(ecfg: EngineConfig, sts, device):
-    """Rings from the alive masks (the init-time full scan) and empty
-    pending blocks."""
-    groups = _capacity_groups(ecfg)
-    prows = _group_pending_rows(ecfg, groups)
-    d = ecfg.num_domains()
-    rings, pending = [], []
-    for g, idxs in enumerate(groups):
-        st = sts[g]
-        rings.append(ring_init(st.alive))
-        pending.append(_empty_pending(d, len(idxs), prows[g], st.x.shape[-1],
-                                      device))
-    return tuple(rings), tuple(pending)
-
-
 def _domain_keys(seed: int, d: int) -> np.ndarray:
     """(D, 2) uint32: domain r's generator seed, (seed, r) folded into 64
     bits, as its high and low words."""
@@ -1165,33 +1189,18 @@ def _gens_from_key(key: np.ndarray, device) -> tuple[torch.Generator, ...]:
                  for row in key)
 
 
-def _carried_rho(ecfg: EngineConfig, sts, device) -> torch.Tensor:
-    """(D, ncl + 1) total charge of every domain's buffers."""
-    cfg = ecfg.pic
-    grid_local = Grid1D(nc=ecfg.local_nc(), dx=cfg.dx)
-    groups = _capacity_groups(ecfg)
-    out = []
-    for r in range(ecfg.num_domains()):
-        rho = torch.zeros(grid_local.ng, dtype=torch.float32, device=device)
-        for g, idxs in enumerate(groups):
-            charges = _group_consts(cfg, idxs, device)[2]
-            st = sts[g]
-            rho = rho + deposit_stacked(grid_local, st.x[r], st.w[r],
-                                        st.alive[r], charges)
-        out.append(rho)
-    return torch.stack(out)
-
-
-def _assemble(ecfg: EngineConfig, species, key, step: int, rho, device,
+def _assemble(ecfg: EngineConfig, species, key, step: int, rho,
               rings=None, pending=None, gens=None) -> EngineState:
-    """An EngineState from per-species (D, cap_l) buffers: groups stacked,
-    rings rebuilt from the alive masks and pending empty unless given,
-    generators seeded from ``key`` unless given."""
+    """An EngineState from per-species (D, cap_l) buffers, on their
+    device: groups stacked, the carried rho deposited unless given, rings
+    rebuilt from the alive masks (the init-time full scan) and pending
+    empty unless given, generators seeded from ``key`` unless given."""
+    cfg, d = ecfg.pic, ecfg.num_domains()
+    dev = species[0].x.device
     groups = _capacity_groups(ecfg)
     key = np.asarray(key, np.uint32)
-    if key.shape != (ecfg.num_domains(), 2):
-        raise ValueError(f"key has shape {key.shape}, expected "
-                         f"({ecfg.num_domains()}, 2)")
+    if key.shape != (d, 2):
+        raise ValueError(f"key has shape {key.shape}, expected ({d}, 2)")
     sts = tuple(StackedSpecies(
         x=torch.stack([species[i].x for i in idxs], 1).contiguous(),
         v=torch.stack([species[i].v for i in idxs], 1).contiguous(),
@@ -1199,13 +1208,19 @@ def _assemble(ecfg: EngineConfig, species, key, step: int, rho, device,
         alive=torch.stack([species[i].alive for i in idxs], 1).contiguous())
         for idxs in groups)
     if rho is None and _carries_rho(ecfg):
-        rho = _carried_rho(ecfg, sts, device)
+        rho = _domain_rho(Grid1D(nc=ecfg.local_nc(), dx=cfg.dx), sts,
+                          [_group_consts(cfg, idxs, dev)[2]
+                           for idxs in groups])
     if not ecfg.use_ring:
         rings, pending = (), ()
-    elif rings is None:
-        rings, pending = _engine_extras(ecfg, sts, device)
+    if rings is None:
+        rings = [ring_init(st.alive) for st in sts]
+    if pending is None:
+        pending = [_empty_pending((d, len(idxs), m), st.x.shape[-1], dev)
+                   for st, idxs, m in zip(sts, groups,
+                                          _group_pending_rows(ecfg, groups))]
     if gens is None:
-        gens = _gens_from_key(key, device)
+        gens = _gens_from_key(key, dev)
     return EngineState(groups=sts, group_species=tuple(groups), gens=gens,
                        key=key.copy(), step=int(step), rho=rho,
                        rings=tuple(rings), pending=tuple(pending))
@@ -1229,7 +1244,7 @@ def init_engine_state(ecfg: EngineConfig, seed: int = 0,
         species.append(SpeciesBuffer(*(torch.stack([getattr(b, f)
                                                     for b in bufs])
                                        for f in ("x", "v", "w", "alive"))))
-    return _assemble(ecfg, species, key, 0, None, dev, gens=gens)
+    return _assemble(ecfg, species, key, 0, None, gens=gens)
 
 
 def attach_engine_state(ecfg: EngineConfig, state: PICState,
@@ -1238,10 +1253,9 @@ def attach_engine_state(ecfg: EngineConfig, state: PICState,
     ((D, cap_l) species, (D, ncl + 1) rho; the usual ``[None]`` lift of a
     single-domain state): rings rebuilt from the alive masks, no in-flight
     arrivals, one generator per domain seeded from ``seed``."""
-    dev = state.species[0].x.device
     return _assemble(ecfg, state.species,
                      _domain_keys(seed, ecfg.num_domains()), state.step,
-                     state.rho, dev)
+                     state.rho)
 
 
 def state_from_numpy(ecfg: EngineConfig, arrays: dict, seed: int = 0,
@@ -1286,8 +1300,8 @@ def state_from_numpy(ecfg: EngineConfig, arrays: dict, seed: int = 0,
     key = arrays.get("key")
     key = (_domain_keys(seed, ecfg.num_domains()) if key is None
            else np.asarray(key))
-    return _assemble(ecfg, species, key, int(arrays["step"]), rho, dev,
-                     rings, pending)
+    return _assemble(ecfg, species, key, int(arrays["step"]), rho, rings,
+                     pending)
 
 
 def to_numpy(state: EngineState) -> dict:
@@ -1300,12 +1314,11 @@ def to_numpy(state: EngineState) -> dict:
         "step": state.step,
         "key": state.key.copy(),
         "rho": None if state.rho is None else a(state.rho),
-        "species": [{f: a(getattr(b, f)) for f in ("x", "v", "w", "alive")}
+        "species": [{f: a(getattr(b, f)) for f in _SPECIES_FIELDS}
                     for b in state.species],
-        "rings": [{f: a(getattr(rg, f)) for f in ("slots", "head", "count")}
+        "rings": [{f: a(getattr(rg, f)) for f in _RING_FIELDS}
                   for rg in state.rings],
-        "pending": [{f: a(getattr(p, f))
-                     for f in ("x", "v", "w", "alive", "dest")}
+        "pending": [{f: a(getattr(p, f)) for f in _PENDING_FIELDS}
                     for p in state.pending]}
 
 
@@ -1321,10 +1334,6 @@ def to_numpy(state: EngineState) -> dict:
 # ``elastic_state`` are the elastic path onto D' != D: host-side compaction
 # and re-split, then a rebuild in closed form (rings from the alive counts,
 # empty pending) that never runs the init-only full free-slot scan.
-
-_SPECIES_FIELDS = ("x", "v", "w", "alive")
-_RING_FIELDS = ("slots", "head", "count")
-_PENDING_FIELDS = ("x", "v", "w", "alive", "dest")
 
 
 def state_tree(state: EngineState) -> dict:
@@ -1453,14 +1462,9 @@ def retarget_state(old: EngineConfig, new: EngineConfig,
     sts = [_flush_pending(st, p, inplace=False)
            for st, p in zip(state.groups, state.pending)] \
         if old.use_ring else list(state.groups)
-    species = {}
-    for st, idxs in zip(sts, groups_old):
-        for j, i in enumerate(idxs):
-            species[i] = SpeciesBuffer(x=st.x[:, j], v=st.v[:, j],
-                                       w=st.w[:, j], alive=st.alive[:, j])
-    species = [species[i] for i in range(len(species))]
+    species = dataclasses.replace(state, groups=tuple(sts)).species
     return _assemble(new, species, state.key, state.step, state.rho,
-                     state.groups[0].x.device, gens=state.gens)
+                     gens=state.gens)
 
 
 def resplit_host(ecfg: EngineConfig, flat: dict, *, d_old: int):
@@ -1563,15 +1567,10 @@ def elastic_state(ecfg: EngineConfig, species, counts, key0, step: int = 0,
         alive=torch.tensor(s["alive"], dtype=torch.bool, device=dev))
         for s in species]
     key = _domain_keys(_key_seed(key0), ecfg.num_domains())
-    if not ecfg.use_ring:
-        return _assemble(ecfg, bufs, key, step, None, dev)
-    cnt = torch.tensor(np.asarray(counts), dtype=torch.int32, device=dev)
-    groups = _capacity_groups(ecfg)
-    prows = _group_pending_rows(ecfg, groups)
-    rings, pending = [], []
-    for idxs, m in zip(groups, prows):
-        cap = ecfg.local_cap(ecfg.pic.species[idxs[0]])
-        rings.append(ring_from_counts(cnt[:, list(idxs)], cap))
-        pending.append(_empty_pending(ecfg.num_domains(), len(idxs), m, cap,
-                                      dev))
-    return _assemble(ecfg, bufs, key, step, None, dev, rings, pending)
+    rings = None
+    if ecfg.use_ring:
+        cnt = torch.tensor(np.asarray(counts), dtype=torch.int32, device=dev)
+        rings = [ring_from_counts(cnt[:, list(idxs)],
+                                  ecfg.local_cap(ecfg.pic.species[idxs[0]]))
+                 for idxs in _capacity_groups(ecfg)]
+    return _assemble(ecfg, bufs, key, step, None, rings)

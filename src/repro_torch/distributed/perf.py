@@ -1,113 +1,112 @@
 """Per-phase timing and scaling metrics of the engine (the port of
 ``repro.distributed.perf``).
 
-* ``phase_breakdown`` times each cumulative probe of ``engine.PHASES`` and
-  differences them: T(push) - T(field) is the push phase, and so on. On a
-  CUDA device each probe call is timed by CUDA events around it, after a
-  warm-up; on the CPU by the host clock. Raw cumulative medians (with
-  min/max) are kept under ``cumulative``; the per-phase times come from the
-  monotone envelope (running max, capped at the total), and an inversion
-  of the raw medians is flagged, not clamped silently.
+* ``phase_breakdown`` runs real steps under the span recorder
+  (``obs.tracing``) and sums each label's spans (``PHASE_SPANS``): device
+  time on a CUDA device, host time on the CPU. The reference times
+  cumulative probes of its step and differences them; the port's step has
+  no probes.
 * ``queue_stats`` is the per-queue occupancy and skew after a few steps,
   on a private copy of the state.
 * ``scaling_metrics`` adds speedup and parallel efficiency to a
   {domains: probe} table; ``write_scaling_json`` writes it atomically.
 
-Times are microseconds a step: medians of ``iters`` calls.
+Times are microseconds a step, the mean over the recorded steps.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
+import itertools
 import json
 import os
+import re
 import sys
 import tempfile
-import time
 
 import torch
 
 from repro_torch.distributed import engine as engine_mod
+from repro_torch.obs import tracing
 
 PHASE_LABELS = ("ingest", "field", "push", "collide", "migrate", "merge",
                 "diag")
 
+# the spans each label sums, "q<k>" standing for any queue index; "diag"
+# is the rest of the step: these spans and the host time no span covers
+PHASE_SPANS = {
+    "ingest": ("engine/ingest",),
+    "field": ("engine/field",),
+    "push": ("engine/sources", "engine/collide_setup", "engine/buffers",
+             "engine/slice/q<k>", "engine/push/q<k>"),
+    "collide": ("engine/collide/q<k>",),
+    "migrate": ("engine/ionize/q<k>", "engine/migrate/q<k>",
+                "engine/ring/q<k>", "engine/join"),
+    "merge": ("engine/merge",),
+    "diag": ("engine/diag", "engine/release"),
+}
 
-def _time_stats(fn, state, device, *, warmup: int = 1,
-                iters: int = 3) -> dict[str, float]:
-    """{median, min, max} time of one call in µs: CUDA events around the
-    call on a card, the host clock on the CPU."""
-    card = device.type == "cuda"
-    for _ in range(warmup):
-        fn(state)
-    if card:
-        torch.cuda.synchronize(device)
-    times = []
-    for _ in range(iters):
-        if card:
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn(state)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) * 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn(state)
-            times.append((time.perf_counter() - t0) * 1e6)
-    times.sort()
-    return {"median": times[len(times) // 2], "min": times[0],
-            "max": times[-1]}
+# the names of the running sums through each label: the reference's
+# cumulative probes
+CUMULATIVE = ("ingest", "field", "push", "collide", "migrate", "merge",
+              "full")
+
+_QUEUE = re.compile(r"/q\d+$")
 
 
-def _consistent_phases(cumulative: dict[str, dict[str, float]]
-                       ) -> tuple[dict[str, float], list[str]]:
-    """Per-phase times from cumulative probe stats: the monotone envelope
-    of the medians (running max, capped at the total), and one flag per
-    raw median inversion, classed against the min/max bands."""
-    checkpoints = engine_mod.PHASES[:-1]
-    total = cumulative["full"]["median"]
-    flags: list[str] = []
-    prev_name, prev = None, None
-    for name in engine_mod.PHASES:
-        med = cumulative[name]["median"]
-        if prev is not None and med < prev["median"]:
-            noise = cumulative[name]["max"] >= prev["min"]
-            flags.append(
-                f"cumulative[{name}] {med:.0f}us < cumulative[{prev_name}] "
-                f"{prev['median']:.0f}us "
-                + ("(within min/max noise bands)" if noise
-                   else "(beyond min/max noise bands)"))
-        prev_name, prev = name, cumulative[name]
-    phases: dict[str, float] = {}
-    env_prev = 0.0
-    for name, label in zip(checkpoints, PHASE_LABELS):
-        env = min(max(cumulative[name]["median"], env_prev), total)
-        phases[label] = env - env_prev
-        env_prev = env
-    phases[PHASE_LABELS[-1]] = total - env_prev
-    return phases, flags
+def _label_us(table: dict, card: bool) -> tuple[dict[str, float], float]:
+    """({label: us}, total us) from a ``tracing.per_step`` table."""
+    key = "device_ms" if card else "host_ms"
+    ms = collections.Counter()
+    for name, row in table.items():
+        ms[_QUEUE.sub("/q<k>", name)] += row[key]
+    total = ms["engine/step"] * 1e3
+    phases = {lbl: sum(ms[n] for n in PHASE_SPANS[lbl]) * 1e3
+              for lbl in PHASE_LABELS[:-1]}
+    phases["diag"] = total - sum(phases.values())
+    return phases, total
 
 
 def phase_breakdown(ecfg, *, iters: int = 3, warmup: int = 1, seed: int = 0,
                     state=None, device="cuda") -> dict:
-    """Per-phase step times from the cumulative probes.
+    """Per-phase step times from the spans of real steps.
 
-    Returns ``{"phases": {label: us}, "total": us, "cumulative":
-    {probe: {"median", "min", "max"}}, "flags": [str]}``. The probes do not
-    donate, so the same state is fed to every probe and survives."""
-    if state is None:
-        state = engine_mod.init_engine_state(ecfg, seed, device)
+    On a private copy of ``state`` (a new state from ``seed`` when None):
+    ``warmup`` steps, then the recorder is reset and ``iters`` steps are
+    recorded. Returns ``{"phases": {label: us}, "total": us, "cumulative":
+    {probe: {"median", "min", "max"}}, "flags": []}``: a label's time is
+    its spans' (``PHASE_SPANS``) and ``total`` is ``engine/step``'s, a
+    step; ``cumulative`` holds the running sums through each label, named
+    as ``CUMULATIVE``, over the recorded steps. Device time overlaps
+    across the queues' streams, so on a card "diag" may come out
+    negative."""
+    state = (engine_mod.init_engine_state(ecfg, seed, device)
+             if state is None else _copy_state(state))
     dev = state.groups[0].x.device
+    card = dev.type == "cuda"
+    step = engine_mod.make_engine_step(ecfg)
+    for _ in range(warmup):
+        state, _ = step(state)
+    tracing.reset()
+    with tracing.recording():
+        for _ in range(iters):
+            state, _ = step(state)
+    if card:
+        torch.cuda.synchronize(dev)
+    records = tracing.spans()
+    phases, total = _label_us(tracing.per_step(records), card)
+    # a step's spans are contiguous: one thread records whole steps
+    runs = [list(itertools.accumulate(
+        _label_us(tracing.per_step(list(recs)), card)[0].values()))
+        for _, recs in itertools.groupby(records, lambda rec: rec["step"])]
     cumulative = {}
-    for upto in engine_mod.PHASES:
-        fn = engine_mod.make_engine_step(ecfg, upto=upto, donate=False)
-        cumulative[upto] = _time_stats(fn, state, dev, warmup=warmup,
-                                       iters=iters)
-    phases, flags = _consistent_phases(cumulative)
-    return {"phases": phases, "total": cumulative["full"]["median"],
-            "cumulative": cumulative, "flags": flags}
+    for i, name in enumerate(CUMULATIVE):
+        vals = sorted(run[i] for run in runs)
+        cumulative[name] = {"median": vals[len(vals) // 2], "min": vals[0],
+                            "max": vals[-1]}
+    return {"phases": phases, "total": total, "cumulative": cumulative,
+            "flags": []}
 
 
 def _copy_state(state):

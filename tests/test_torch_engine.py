@@ -19,7 +19,7 @@
     parity, absorb conservation with and without rebalance, MC pair
     accounting and the birth budget, ring against legacy merge on the same
     draws, collisions on the engine and the cross-group rejection, a skew
-    of at most 1 on the ``upto="ingest"`` probe after a maximal skew, and
+    of at most 1 after the ingest phase that follows a maximal skew, and
     the ``async_n`` validation.
 (c) ``core.decomposition``'s shim at D in {1, 4}.
 (d) ``pic_run --device cpu --domains 4 --async-n 2 --field-solve --phases``
@@ -426,11 +426,12 @@ def _skewed_state(ecfg, cap, nlive, seed=0):
 
 
 def test_rebalance_bounds_skew_at_ingest():
-    """One rebalance after a maximal skew: the ``upto="ingest"`` probe
-    sees every domain's per-queue occupancy skew at most 1 (the bound the
-    compaction guarantees; churn after the ingest may move the full-step
-    diag, which ``test_rebalance_full_step_diag_matches_reference``
-    holds to the reference's)."""
+    """One rebalance after a maximal skew: the ingest phase (``_ingest``,
+    on a copy of the state) leaves every domain's per-queue occupancy
+    skew at most 1 (the bound the compaction guarantees; churn after the
+    ingest may move the full-step diag, which
+    ``test_rebalance_full_step_diag_matches_reference`` holds to the
+    reference's)."""
     cap, nlive = 1024, 256
     cfg = _cfg(nc=64, n=nlive, cap=cap, dt=0.1)
     ecfg = engine.EngineConfig(pic=cfg, domains=1, async_n=2,
@@ -444,11 +445,15 @@ def test_rebalance_bounds_skew_at_ingest():
     state = engine.attach_engine_state(ecfg, pstate)
     before = engine._queue_occupancy(state.groups[0].alive, 2)
     assert int((before.max(-1).values - before.min(-1).values).max()) == nlive
-    probed, aux = engine.make_engine_step(ecfg, upto="ingest")(state)
-    occ = engine._queue_occupancy(probed.groups[0].alive, 2)
+    plan = engine._plan(ecfg)
+    work = engine._Work(plan, {}, perf._copy_state(state), None, None,
+                        donate=True)
+    engine._ingest(plan, work)
+    occ = engine._queue_occupancy(work.sts[0].alive, 2)
     assert int((occ.max(-1).values - occ.min(-1).values).max()) <= 1
+    aux = sum(st.alive.sum((1, 2)).float() for st in work.sts)
     assert int(aux.sum()) == 2 * nlive
-    # the probe left the input state as it was
+    # the ingest on the copy left the input state as it was
     assert torch.equal(engine._queue_occupancy(state.groups[0].alive, 2),
                        before)
 

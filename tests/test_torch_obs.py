@@ -4,13 +4,15 @@ reference's own ``validate_record``/``validate_stream``; the scope names
 one engine step enters, equal to those the reference's trace enters for
 the same config; the ranges reaching a ``torch.profiler`` trace; the
 metrics toggle bitwise at (D, async_n) in {1, 2, 4}^2; the phase
-derivation and the probes' state safety; atomic artifact writes.
+breakdown read from the spans and the probes' state safety; atomic
+artifact writes.
 """
 
 import collections
 import dataclasses
 import json
 import os
+import re
 import tempfile
 
 import jax
@@ -321,20 +323,79 @@ def _stats(med, lo=None, hi=None):
             "max": float(hi if hi is not None else med)}
 
 
-@pytest.mark.parametrize("cum", [
-    {"ingest": _stats(10), "field": _stats(30), "push": _stats(70),
-     "collide": _stats(90), "migrate": _stats(120), "merge": _stats(150),
-     "full": _stats(160)},
-    {"ingest": _stats(10), "field": _stats(30),
-     "push": _stats(20, lo=15, hi=40), "collide": _stats(90),
-     "migrate": _stats(120), "merge": _stats(500, lo=480, hi=520),
-     "full": _stats(160, lo=155, hi=170)}], ids=["monotonic", "inverted"])
-def test_consistent_phases_equal_the_reference(cum):
-    """The derivation of phases from cumulative probes: equal to the
-    reference's (diffs when monotonic; inversions flagged, not clamped)."""
-    phases, flags = perf._consistent_phases(cum)
-    assert (phases, flags) == ref_perf._consistent_phases(cum)
-    assert abs(sum(phases.values()) - cum["full"]["median"]) < 1e-9
+def _breakdown_config(name):
+    """D 2 x async(2) with ionization and the field, or D 1 x async(2) with
+    the collision menu and SEE walls."""
+    if name == "ionize_field":
+        return engine.EngineConfig(
+            pic=dataclasses.replace(_cfg(), field_solve=True), domains=2,
+            async_n=2, max_migration=64, max_births=64)
+    cfg = dataclasses.replace(
+        _cfg(ionization=False), boundary="absorb", wall_emission=((0, 0),),
+        emission_yield=0.7, emission_vth=0.5,
+        collisions=configs.make_collision_menu(
+            rate_elastic=5e-2, rate_cx=5e-2, rate_coulomb=5e-2))
+    return engine.EngineConfig(pic=cfg, domains=1, async_n=2,
+                               max_migration=64)
+
+
+_QUEUE = re.compile(r"/q\d+$")
+
+
+@pytest.mark.parametrize("name", ["ionize_field", "collide_see"])
+def test_phase_breakdown_reads_the_spans(name):
+    """On the CPU, each label of ``phase_breakdown`` is the host time of
+    its spans (``perf.PHASE_SPANS``), summed by ``tracing.per_step`` over
+    the steps it recorded, ``total`` is ``engine/step``'s and "diag" the
+    rest; every span directly under the step or under a queue's container
+    falls in exactly one label, and no label counts a nested span."""
+    ecfg = _breakdown_config(name)
+    state = engine.init_engine_state(ecfg, 0, device="cpu")
+    probe = perf.phase_breakdown(ecfg, iters=2, warmup=1, state=state)
+    recs = tracing.spans()                     # the recorded steps, kept
+    assert len({r["step"] for r in recs}) == 2
+    table = tracing.per_step(recs)
+
+    def us(pattern):
+        return 1e3 * sum(row["host_ms"] for n, row in table.items()
+                         if _QUEUE.sub("/q<k>", n) == pattern)
+
+    for lbl in perf.PHASE_LABELS[:-1]:
+        want = sum(us(n) for n in perf.PHASE_SPANS[lbl])
+        assert probe["phases"][lbl] == pytest.approx(want, rel=1e-9), lbl
+    assert probe["total"] == pytest.approx(us("engine/step"), rel=1e-9)
+    assert probe["phases"]["diag"] == pytest.approx(
+        probe["total"] - sum(probe["phases"][lbl]
+                             for lbl in perf.PHASE_LABELS[:-1]), rel=1e-9)
+    assert probe["phases"]["diag"] >= us("engine/diag") + us(
+        "engine/release")
+    assert probe["flags"] == []
+    assert tuple(probe["cumulative"]) == perf.CUMULATIVE
+    full = probe["cumulative"]["full"]
+    assert full["min"] <= probe["total"] <= full["max"]
+
+    def is_queue(r):
+        return _QUEUE.sub("/q<k>", r["name"]) == "engine/queue/q<k>"
+
+    containers = {r["index"] for r in recs
+                  if r["parent"] is None or is_queue(r)}
+    listed = collections.Counter(n for spans in perf.PHASE_SPANS.values()
+                                 for n in spans)
+    assert max(listed.values()) == 1
+    seen = set()
+    for r in recs:
+        span = _QUEUE.sub("/q<k>", r["name"])
+        if r["parent"] in containers and not is_queue(r):
+            assert span in listed, span
+            seen.add(span)
+        elif r["parent"] is not None:
+            assert span not in listed, span
+    assert {"engine/push/q<k>", "engine/migrate/q<k>", "engine/merge",
+            "engine/diag"} <= seen
+    if name == "collide_see":
+        assert "engine/collide/q<k>" in seen and probe["phases"]["collide"] > 0
+    else:
+        assert "engine/ionize/q<k>" in seen
 
 
 def test_scaling_metrics_equal_the_reference():
