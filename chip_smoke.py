@@ -23,12 +23,16 @@ Phases (any failure raises and ends the run with a non-zero exit):
    and deflects those slots on the main path; the cell density of those
    slots beside the histogram it replaced, and the bin starts that
    ``charge_exchange`` searches in the neutrals' sorted cell keys beside
-   ``cell_bins``) and at ragged small shapes
+   ``cell_bins``; the births kernel landing the hits of one ionization step
+   in the electrons and the ions, the neutrals killed) and at ragged small
+   shapes
    (every boundary with and without a magnetic field; the deposit kernels'
    two forms on either side of the grid size that parts them; deflection
    rows along z and with delta = 0; pairs in odd and single cells, one row,
    no eligible row; the density at cell edges, outside [0, L), with
-   weights 1, 0.37 and random and every row dead), each deposit checked to
+   weights 1, 0.37 and random and every row dead; births with no hit, more
+   hits than free slots, a full target, a hit on the last row into the
+   last slot), each deposit checked to
    launch in the form its grid gives;
    times by CUDA events (and the deposit kernels' device time behind a spin
    kernel) beside the least time the card allows, also at an engine
@@ -269,6 +273,13 @@ PAIR_FLOPS = TA_FLOPS + 16
 DENSITY_ALIVE_BYTES = 1
 DENSITY_ROW_BYTES = 8
 DENSITY_FLOPS = 3
+# the births kernel: mask 1 B a candidate and alive 1 B a slot a target
+# read; a birth's rows, x, v, w read and written with alive, 41 B a
+# target, and the kill's alive and w (w read), 9 B
+BIRTH_MASK_BYTES = 1
+BIRTH_SLOT_BYTES = 1
+BIRTH_ROW_BYTES = 41
+BIRTH_KILL_BYTES = 9
 COLL_KEYS = ("coll_elastic", "coll_cx", "coll_coulomb")
 
 TOL = 2e-5          # x / v / w, as tests/test_kernels.py
@@ -631,6 +642,122 @@ def binning_phase(collide, gen, dev, st, grid):
     return results
 
 
+def compare_births(births, mask, dests, srcs, kill):
+    """The births kernel and its plain version on copies of the targets
+    and the kill buffer (a source's w is the kill buffer's, as in
+    ``ionize``): every field, ``ok`` and both counters bit for bit.
+    Returns the count landed."""
+    def land(fn):
+        d = [tuple(a.clone() for a in t) for t in dests]
+        k = None if kill is None else tuple(a.clone() for a in kill)
+        src = [(x, v, w if k is None else k[1]) for x, v, w in srcs]
+        return fn(mask, d, src, k), d, k
+
+    got, got_d, got_k = land(births.place_births)
+    want, want_d, want_k = land(births.place_births_plain)
+    pairs = list(zip(got, want)) + [
+        p for gd, wd in zip(got_d, want_d) for p in zip(gd, wd)]
+    if kill is not None:
+        pairs += list(zip(got_k, want_k))
+    for g, w in pairs:
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError("place_births: differs from its plain "
+                                 "version")
+    return int(got[1])
+
+
+def births_phase(gen, dev, st, cfg):
+    """The births kernel on ragged cases (no hit, a few, more than the
+    free slots, a full target, a hit on the last row into the last slot,
+    two targets of unequal capacity with a kill), then on the §3.3 step's
+    ionization: the hits of the initial state landing in the electrons and
+    the ions, the neutrals killed, timed beside its bound and its plain
+    version. Returns its result row."""
+    from repro_torch.core import collisions
+    from repro_torch.core.grid import deposit_density, gather
+    from repro_torch.core.particles import SpeciesBuffer
+    from repro_torch.kernels import births
+
+    def rows(cap, alive):
+        return (torch.rand(cap, generator=gen, device=dev),
+                torch.randn(cap, 3, generator=gen, device=dev),
+                torch.where(alive, torch.rand(cap, generator=gen,
+                                              device=dev) + 0.5, 0.0), alive)
+
+    def alive_share(cap, share):
+        return torch.rand(cap, generator=gen, device=dev) < share
+
+    m = 4000
+    every = torch.ones(m, dtype=torch.bool, device=dev)
+    last = torch.zeros(m, dtype=torch.bool, device=dev)
+    last[-1] = True
+    only_last = torch.ones(5000, dtype=torch.bool, device=dev)
+    only_last[-1] = False
+    cases = [(~every, [alive_share(5000, 0.6)], False),
+             (alive_share(m, 0.01), [alive_share(5000, 0.6)], False),
+             (alive_share(m, 0.5), [alive_share(5000, 0.9)], False),
+             (alive_share(m, 0.01), [alive_share(5000, 0.6),
+                                     alive_share(3000, 1.0)], True),
+             (last, [only_last], False),
+             (alive_share(m, 0.1), [alive_share(5000, 0.6),
+                                    alive_share(3000, 0.7)], True)]
+    landed = []
+    for mask, alive, kill in cases:
+        src = rows(m, every)
+        srcs = [(src[0], torch.randn(m, 3, generator=gen, device=dev),
+                 src[2]) for _ in alive]
+        landed.append(compare_births(
+            births, mask, [rows(a.shape[0], a) for a in alive], srcs,
+            (every.clone(), src[2].clone()) if kill else None))
+    log(f"kernels: place_births on {m} candidates into 5,000 and 3,000 "
+        f"slots (landed {landed}: no hit, a few, more than the free slots, "
+        f"a full target, the last row into the last slot, two targets with "
+        f"a kill) equals its plain version")
+
+    ni, ei, ii = cfg.ionization
+    grid = cfg.grid
+    neutrals = SpeciesBuffer(st.x[ni], st.v[ni], st.w[ni], st.alive[ni])
+    electrons = SpeciesBuffer(st.x[ei], st.v[ei], st.w[ei], st.alive[ei])
+    params = collisions.IonizationParams(rate=cfg.ionization_rate,
+                                         vth_electron=cfg.ionization_vth_e)
+    ne = deposit_density(grid, electrons)
+    hit, ve = collisions.ionization_events(
+        torch.Generator(device=dev).manual_seed(97), neutrals.x,
+        neutrals.alive, gather(grid, ne, neutrals.x), params,
+        cfg.dt)
+    dests = [tuple(a.clone() for a in (st.x[i], st.v[i], st.w[i],
+                                       st.alive[i])) for i in (ei, ii)]
+    srcs = [(neutrals.x, ve, neutrals.w), (neutrals.x, neutrals.v,
+                                           neutrals.w)]
+    kill = (neutrals.alive.clone(), neutrals.w.clone())
+    n = compare_births(births, hit, dests, srcs, kill)
+    if n <= 0:
+        raise AssertionError("place_births: no birth at the §3.3 step")
+    m, caps = hit.shape[0], [d[0].shape[0] for d in dests]
+    bms, by = bound_ms(m * BIRTH_MASK_BYTES + sum(caps) * BIRTH_SLOT_BYTES
+                       + n * (len(dests) * BIRTH_ROW_BYTES
+                              + BIRTH_KILL_BYTES), 0)
+    srcs = [(x, v, kill[1]) for x, v, _ in srcs]
+
+    def call():
+        births.place_births(hit, dests, srcs, kill)
+
+    ms, _ = timed(f"place_births ({m} candidates, {n} births into 2 x "
+                  f"{caps[0]} slots, with the kill)", call, bms)
+    row = dict(
+        name="place_births", route="cuda",
+        source="src/repro_torch/csrc/births.cu",
+        replaces="src/repro/core/particles.py inject_masked's free_slots "
+                 "scan and .at[dest].set scatter",
+        max_abs_err=0.0, ms=ms,
+        plain_ms=median_ms(lambda: births.place_births_plain(
+            hit, dests, srcs, kill), 5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"place_births at the §3.3 step: {n} births of {int(hit.sum())} "
+        f"hits, plain {row['plain_ms']:.4f} ms")
+    return row
+
+
 def deposit_bound(q, ng):
     """(bound ms, bound_by, charged elements) of a deposit of ``q``: the
     bytes it must move are q whole, the 32-byte sectors of x that hold a
@@ -906,6 +1033,7 @@ def kernel_phase(dev):
     log(f"ta_kick rows: {rows}, of which {int((targs[1] != 0).sum())} "
         f"with delta != 0")
     results.update(binning_phase(collide, gen, dev, st, cfg.grid))
+    results["place_births"] = births_phase(gen, dev, st, cfg)
     for r in results.values():
         extra = (f" (no deposit {r['ms_no_deposit']:.4f} ms)"
                  if "ms_no_deposit" in r else "")
@@ -986,17 +1114,19 @@ STANDALONE = ("ta_kick",)
 def pic_counters():
     """The PIC kernels' wrappers by name, whose ``launches`` the phases
     read."""
-    from repro_torch.kernels import collide, deposit, fused_cycle, mover
+    from repro_torch.kernels import (births, collide, deposit, fused_cycle,
+                                     mover)
 
     return {"fused_push_deposit": fused_cycle.fused_push_deposit,
             "mover_push": mover.mover_push, "deposit": deposit.deposit,
             "ta_kick": collide.ta_kick,
             "coulomb_pairs": collide.coulomb_pairs,
-            "cell_density": collide.cell_density}
+            "cell_density": collide.cell_density,
+            "place_births": births.place_births}
 
 
 def expected(form, fused=0, fused_dep=0, mover=0, deposit=0, pairs=0,
-             density=0):
+             density=0, births=0):
     """Launches a step: totals, and the deposit kernels' launches by form,
     all of them in ``form`` (fused_dep of the fused kernel's launches carry
     a deposit)."""
@@ -1004,7 +1134,7 @@ def expected(form, fused=0, fused_dep=0, mover=0, deposit=0, pairs=0,
 
     out = {"fused_push_deposit": fused, "mover_push": mover,
            "deposit": deposit, "ta_kick": 0, "coulomb_pairs": pairs,
-           "cell_density": density}
+           "cell_density": density, "place_births": births}
     for name, n in (("fused_push_deposit", fused_dep), ("deposit", deposit)):
         for f in FORMS:
             out[f"{name}/{f}"] = n if f == form else 0
@@ -1156,14 +1286,14 @@ def main_path_phase(dev):
     form = deposit.deposit_form(cfg.nc + 1)
     ms["fused"], paths["fused"] = drive(
         cfg, 5, "fused (field solve off)", counters,
-        expected(form, fused=1, deposit=1), dev)
+        expected(form, fused=1, deposit=1, births=1), dev)
     ms["fused_field"], paths["fused_field"] = drive(
         dataclasses.replace(cfg, field_solve=True), 5,
         "fused + field solve (rho carried)", counters,
-        expected(form, fused=1, fused_dep=1, deposit=2), dev)
+        expected(form, fused=1, fused_dep=1, deposit=2, births=1), dev)
     ms["explicit"], paths["explicit"] = drive(
         make_config(mover_strategy="explicit"), 3, "explicit",
-        counters, expected(form, mover=3, deposit=1), dev)
+        counters, expected(form, mover=3, deposit=1, births=1), dev)
     ms["collisions"], paths["collisions"] = drive(
         collision_config(), 3, "collisions (menu + T-A kernel, field off)",
         counters, expected(form, fused=1, **menu_launches(collision_config())),
@@ -2954,7 +3084,7 @@ SERVE_LINE = re.compile(r"session s(\d+): slot=(\d+) steps=(\d+) "
 SERVE_LAST = re.compile(r"(\d+) sessions x (\d+) steps, width=(\d+): "
                         r"[\d.]+s — stats (\{.*\})")
 PIC_KERNELS = ("fused_push_deposit", "mover_push", "deposit", "ta_kick",
-               "coulomb_pairs", "cell_density")
+               "coulomb_pairs", "cell_density", "place_births")
 SERVE_ARGV = ["--ensemble", "8", "--steps", "5", "--strategy", "fused"]
 
 
@@ -3329,7 +3459,7 @@ def engine_params_section(dev, counters):
 def serve_launcher(counters):
     """(e) ``pic_run --ensemble 8 --steps 5 --strategy fused`` at its
     defaults: the reference launcher's lines, 16 sessions of 5 steps, one
-    fused and one deposit launch a member step."""
+    fused, one deposit and one births launch a member step."""
     import contextlib
     import io
 
@@ -3347,7 +3477,8 @@ def serve_launcher(counters):
     if (len(lines) != 17 or not all(sessions) or not last
             or last.groups()[:3] != ("16", "5", "8")
             or any(m.group(3) != "5" for m in sessions)
-            or got["fused_push_deposit"] != 80 or got["deposit"] != 80):
+            or got["fused_push_deposit"] != 80 or got["deposit"] != 80
+            or got["place_births"] != 80):
         raise AssertionError(f"(e) pic_run {' '.join(argv)}: lines {lines}, "
                              f"launches {got}")
     for ln in (lines[0], lines[-1]):
@@ -3365,7 +3496,8 @@ def serve_phase(dev, solo_ms):
     t_start = time.perf_counter()
     counters = pic_counters()
     cfg = make_config(mover_strategy="fused")
-    solo = expected(deposit.deposit_form(cfg.nc + 1), fused=1, deposit=1)
+    solo = expected(deposit.deposit_form(cfg.nc + 1), fused=1, deposit=1,
+                    births=1)
     paths, numbers = serve_section(dev, cfg, solo, solo_ms, counters)
     paths["collisions"] = collision_serve(dev, counters)
     paths.update(bitwise_section(dev, counters))
@@ -3376,7 +3508,7 @@ def serve_phase(dev, solo_ms):
               for name in PIC_KERNELS}
     # the mover kernel serves 'explicit' only, which refuses params
     for name in ("fused_push_deposit", "deposit", "coulomb_pairs",
-                 "cell_density"):
+                 "cell_density", "place_births"):
         if counts[name] <= 0:
             raise AssertionError(f"phase 12: {name} never launched")
     numbers["seconds"] = time.perf_counter() - t_start
@@ -4573,7 +4705,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     out = _build.build()
     log(f"build: {_build.build_seconds:.1f} s into {out.relative_to(ROOT)}")
-    for src in ("mover", "collide"):
+    for src in ("mover", "collide", "births"):
         for line in (out / f"{src}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")

@@ -40,8 +40,8 @@ from typing import NamedTuple, Sequence
 import torch
 
 from repro_torch.core.grid import Grid1D, deposit_density, gather
-from repro_torch.core.particles import (SpeciesBuffer, _put, inject_masked,
-                                        kill, nonzero_static, take)
+from repro_torch.core.particles import (SpeciesBuffer, _put, as_target,
+                                        copy_species, nonzero_static, take)
 from repro_torch.kernels import ops
 # rows that may collide and their cell keys: the rule lives beside the
 # density kernel, which restates it
@@ -107,9 +107,16 @@ def ionize(gen: torch.Generator, neutrals: SpeciesBuffer,
            electrons: SpeciesBuffer, ions: SpeciesBuffer, grid: Grid1D,
            params: IonizationParams, dt: float,
            ne: torch.Tensor | None = None, draws: dict | None = None,
+           donate: bool = False,
            ) -> tuple[SpeciesBuffer, SpeciesBuffer, SpeciesBuffer, dict,
                       IonizationBirths]:
-    """One MC ionization step over the full buffers.
+    """One MC ionization step over the full buffers: the k-th hit, in index
+    order, is born in the k-th dead slot of both the electrons and the ions
+    and its neutral dies, for k below both buffers' free counts
+    (``kernels.ops.place_births_``). With ``donate`` the three buffers are
+    written in place and returned (``births.w`` is then a copy of the
+    neutrals' weights taken before the kill); without, they are left
+    unchanged.
 
     Returns (neutrals, electrons, ions, diag, births).
     """
@@ -118,26 +125,25 @@ def ionize(gen: torch.Generator, neutrals: SpeciesBuffer,
     ne_at = gather(grid, ne, neutrals.x)
     hit, ve = ionization_events(gen, neutrals.x, neutrals.alive, ne_at,
                                 params, dt, draws)
-
-    # the k-th hit is allowed iff both buffers still have a k-th free slot,
-    # so inject_masked cannot drop an allowed birth
-    rank = torch.cumsum(hit, 0) - 1
-    free_e = (~electrons.alive).sum()
-    free_i = (~ions.alive).sum()
-    allowed = hit & (rank < torch.minimum(free_e, free_i))
-
-    electrons, dropped_e, _ = inject_masked(electrons, neutrals.x, ve,
-                                            neutrals.w, allowed)
-    ions, dropped_i, _ = inject_masked(ions, neutrals.x, neutrals.v,
-                                       neutrals.w, allowed)
+    if donate:
+        w = neutrals.w.clone()          # the kill zeroes the ionized rows
+    else:
+        w = neutrals.w
+        neutrals = dataclasses.replace(neutrals, w=w.clone(),
+                                       alive=neutrals.alive.clone())
+        electrons, ions = copy_species(electrons), copy_species(ions)
+    ok, n, overflow = ops.place_births_(
+        hit, [as_target(electrons), as_target(ions)],
+        [(neutrals.x, ve, neutrals.w), (neutrals.x, neutrals.v, neutrals.w)],
+        kill=(neutrals.alive, neutrals.w))
     births = IonizationBirths(x=neutrals.x, v_electron=ve, v_ion=neutrals.v,
-                              w=neutrals.w, ok=allowed)
-    neutrals = kill(neutrals, allowed)
-
+                              w=w, ok=ok)
+    # a pair lands in both buffers or in neither: none is dropped
     diag = {
-        "n_ionized": allowed.sum(dtype=torch.int32),
-        "ionize_dropped": dropped_e + dropped_i,      # structurally zero
-        "birth_overflow": (hit & ~allowed).sum(dtype=torch.int32),
+        "n_ionized": n,
+        "ionize_dropped": torch.zeros((), dtype=torch.int32,
+                                      device=hit.device),
+        "birth_overflow": overflow,
     }
     return neutrals, electrons, ions, diag, births
 

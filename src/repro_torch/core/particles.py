@@ -3,7 +3,8 @@
 A species is a dense structure of arrays with a fixed capacity and an
 ``alive`` mask: birth writes into dead slots found by a prefix sum, death
 clears the mask. Dead slots carry ``w == 0``. Functions return new buffers
-and leave their inputs unchanged, as the reference's do.
+and leave their inputs unchanged, as the reference's do; ``inject_masked``
+with ``donate=True`` writes into the buffer it is given.
 
 Monte-Carlo functions take ``draws=``: a dict of the raw random arrays they
 would otherwise draw from their ``torch.Generator`` (``"uniform"`` in
@@ -23,6 +24,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.mover import inv_dx
 
 
@@ -189,30 +191,28 @@ def _put(a: torch.Tensor, dest: torch.Tensor, rows) -> torch.Tensor:
     return out[:cap]
 
 
-def inject_at(buf: SpeciesBuffer, dest: torch.Tensor, x: torch.Tensor,
-              v: torch.Tensor, w: torch.Tensor,
-              ok: torch.Tensor) -> SpeciesBuffer:
-    """Scatter candidates into pre-claimed dead slots ``dest`` (M,); rows
-    where ``ok`` is False are dropped."""
-    dest = torch.where(ok, dest, buf.capacity)
-    return SpeciesBuffer(x=_put(buf.x, dest, x), v=_put(buf.v, dest, v),
-                         w=_put(buf.w, dest, w),
-                         alive=_put(buf.alive, dest, True))
+def copy_species(buf: SpeciesBuffer) -> SpeciesBuffer:
+    """A buffer of fresh tensors holding ``buf``'s values."""
+    return SpeciesBuffer(x=buf.x.clone(), v=buf.v.clone(), w=buf.w.clone(),
+                         alive=buf.alive.clone())
+
+
+def as_target(buf: SpeciesBuffer) -> tuple[torch.Tensor, ...]:
+    """(x, v, w, alive): a target of ``kernels.ops.place_births_``."""
+    return buf.x, buf.v, buf.w, buf.alive
 
 
 def inject_masked(buf: SpeciesBuffer, x: torch.Tensor, v: torch.Tensor,
-                  w: torch.Tensor, mask: torch.Tensor
+                  w: torch.Tensor, mask: torch.Tensor, donate: bool = False
                   ) -> tuple[SpeciesBuffer, torch.Tensor, torch.Tensor]:
-    """Write ``mask``-selected candidates (fixed length M) into dead slots.
-    Returns (buffer, n_dropped, accepted): candidates that find no free slot
-    are dropped and counted."""
-    m = x.shape[0]
-    rank = torch.cumsum(mask, 0) - 1
-    slots = free_slots(buf, m)
-    dest = torch.where(mask, slots[rank.clamp(0, m - 1)], buf.capacity)
-    ok = mask & (dest < buf.capacity)
-    out = inject_at(buf, dest, x, v, w, ok)
-    n_dropped = (mask & ~ok).sum(dtype=torch.int32)
+    """Write ``mask``-selected candidates (fixed length M) into dead slots:
+    the k-th selected candidate, in index order, lands in the k-th dead
+    slot, in slot order (``kernels.ops.place_births_``). Returns (buffer,
+    n_dropped, accepted): candidates that find no free slot are dropped and
+    counted. With ``donate`` the rows are written into ``buf`` itself,
+    which is returned; without, ``buf`` is left unchanged."""
+    out = buf if donate else copy_species(buf)
+    ok, _, n_dropped = ops.place_births_(mask, [as_target(out)], [(x, v, w)])
     return out, n_dropped, ok
 
 
@@ -287,9 +287,8 @@ def take(buf: SpeciesBuffer, idx: torch.Tensor) -> SpeciesBuffer:
 
 def kill_packed(buf: SpeciesBuffer, idx: torch.Tensor,
                 ok: torch.Tensor) -> SpeciesBuffer:
-    """Kill the ``ok``-masked packed slot indices ``idx`` (M,): the packed
-    mirror of ``inject_at``, so the freed slots can feed ``ring_push``
-    without a scan."""
+    """Kill the ``ok``-masked packed slot indices ``idx`` (M,), so that the
+    freed slots can feed ``ring_push`` without a scan."""
     cap = buf.capacity
     gone = torch.zeros(cap + 1, dtype=torch.bool, device=buf.x.device)
     gone[torch.where(ok.bool(), idx.long(), cap)] = True

@@ -460,6 +460,17 @@ def _collide(state: PICState, cfg: PICConfig, rp: RuntimeParams | None,
     diag.update(cdiag)
 
 
+def _writable(buf: SpeciesBuffer, state: PICState) -> SpeciesBuffer:
+    """``buf`` with each tensor that the input ``state`` also holds (a
+    sub-cycled species off its step, a field the push passed through)
+    replaced by a copy, so that the sources write in place into the step's
+    own buffers and never into its input."""
+    held = {t.untyped_storage().data_ptr() for b in state.species
+            for t in (b.x, b.v, b.w, b.alive)}
+    return SpeciesBuffer(*(t.clone() if t.untyped_storage().data_ptr() in held
+                           else t for t in (buf.x, buf.v, buf.w, buf.alive)))
+
+
 def _ionize(state: PICState, cfg: PICConfig, rp: RuntimeParams | None,
             species: list, diag: dict, new_rho, carried: bool, draws):
     """MC ionization of the pushed ``species`` (in place), with the births'
@@ -470,8 +481,9 @@ def _ionize(state: PICState, cfg: PICConfig, rp: RuntimeParams | None,
         rate=cfg.ionization_rate if rp is None else rp.ionization_rate,
         vth_electron=cfg.ionization_vth_e)
     neu, ele, ion, d, births = collisions.ionize(
-        state.gen, species[ni], species[ei], species[ii], grid, iparams,
-        cfg.dt if rp is None else rp.dt, draws=draws)
+        state.gen, *(_writable(species[i], state) for i in (ni, ei, ii)),
+        grid, iparams, cfg.dt if rp is None else rp.dt, draws=draws,
+        donate=True)
     species[ni], species[ei], species[ii] = neu, ele, ion
     if carried and new_rho is not None:
         # one deposit for both halves of every born pair; the killed

@@ -1148,20 +1148,19 @@ def _merged(st_in: StackedSpecies, kept_g, n_q: int) -> StackedSpecies:
 
 def _inject_rows(full: StackedSpecies, cand: StackedSpecies):
     """The legacy merge (``use_ring=False``): a full-scan
-    ``inject_masked`` per domain and species. Returns (stack, dropped
-    (D, S), accepted (D, S, M))."""
+    ``inject_masked`` per domain and species, into a copy of ``full``.
+    Returns (stack, dropped (D, S), accepted (D, S, M))."""
     d, s = full.x.shape[:2]
     out = _map(full, torch.clone)
     dropped = torch.zeros(d, s, dtype=torch.int32, device=full.x.device)
     accepted = torch.zeros_like(cand.alive)
     for r in range(d):
         for j in range(s):
-            buf, n_drop, ok = inject_masked(
-                SpeciesBuffer(x=full.x[r, j], v=full.v[r, j],
-                              w=full.w[r, j], alive=full.alive[r, j]),
-                cand.x[r, j], cand.v[r, j], cand.w[r, j], cand.alive[r, j])
-            out.x[r, j], out.v[r, j] = buf.x, buf.v
-            out.w[r, j], out.alive[r, j] = buf.w, buf.alive
+            _, n_drop, ok = inject_masked(
+                SpeciesBuffer(x=out.x[r, j], v=out.v[r, j], w=out.w[r, j],
+                              alive=out.alive[r, j]),
+                cand.x[r, j], cand.v[r, j], cand.w[r, j], cand.alive[r, j],
+                donate=True)
             dropped[r, j] = n_drop
             accepted[r, j] = ok
     return out, dropped, accepted

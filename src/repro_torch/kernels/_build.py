@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_cycle", "mover", "deposit", "collide", "flash_attention")
+SOURCES = ("fused_cycle", "mover", "deposit", "collide", "births",
+           "flash_attention")
 # -fmad=false: no multiply-add contraction, so each PIC kernel rounds
 # exactly as its plain PyTorch version does (see csrc/pic_common.cuh); flash
 # attention writes its multiply-adds as fmaf() instead

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import births as _births
 from repro_torch.kernels import collide as _collide
 from repro_torch.kernels import deposit as _deposit
 from repro_torch.kernels import flash_attention as _flash  # noqa: F401 (registers repro_torch::flash_attention)
@@ -99,6 +100,19 @@ def cell_density(x: torch.Tensor, alive: torch.Tensor, w: torch.Tensor, *,
     fn = (_collide.cell_density if _on_card(x)
           else _collide.cell_density_plain)
     return fn(x, alive, w, dx=dx, nc=nc, length=length) * _mover.inv_dx(dx)
+
+
+def place_births_(mask: torch.Tensor, dests, srcs, kill=None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Land the ``mask``-selected candidates (M,) in place: the k-th in
+    index order goes to the k-th dead slot of each target of ``dests``
+    ((x, v, w, alive) each, one or two), from the matching rows of ``srcs``
+    ((x, v, w) each), for k below min(hits, each target's free count);
+    ``kill`` ((alive, w) of the candidates' own buffer) loses the landed
+    rows. Returns (ok (M,) bool, n () int32 landed, dropped () int32)."""
+    fn = (_births.place_births if _on_card(mask)
+          else _births.place_births_plain)
+    return fn(mask, dests, srcs, kill)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
