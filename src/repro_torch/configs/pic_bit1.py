@@ -6,12 +6,17 @@ ionization depletes neutrals, dn/dt = -n n_e R. One-dimensional grid of
 ~100K cells, three species, ~10M macro-particles per species (30M total),
 field solver and smoother disabled (the paper's test); mover + MC
 ionization dominate. ``make_wall_config`` is the same plasma between
-grounded absorbing walls with the field on and secondary electron emission.
+grounded absorbing walls with the field on and secondary electron emission;
+``make_field_config`` is the periodic test with the field on. Both field-on
+deployments start from a quasi-neutral load (``quasi_neutral``): one domain
+by ``wall_state``, the engine's domains by ``field_engine_state``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.core import pic
 from repro_torch.core.collisions import CollisionConfig
@@ -87,6 +92,17 @@ def make_see_config(nc: int = 4096, n: int = 262_144,
 WALL_EPS0 = 100.0
 
 
+def _s33_species(n: int) -> tuple[pic.SpeciesConfig, ...]:
+    """The §3.3 species with ``n`` particles each in ceil(1.6 n) slots
+    (``CAPACITY`` at the published n)."""
+    cap = -(-8 * n // 5)
+    return (
+        pic.SpeciesConfig("e", -1.0, 1.0, cap, n, vth=1.0),
+        pic.SpeciesConfig("D+", 1.0, 3672.0, cap, n, vth=0.016),
+        pic.SpeciesConfig("D", 0.0, 3672.0, cap, n, vth=0.016),
+    )
+
+
 def make_wall_config(nc: int = NC_GLOBAL, n: int = N_PER_SPECIES, *,
                      strategy: str = "fused", emission_yield: float = 0.5,
                      diag_every: int = 1) -> pic.PICConfig:
@@ -98,14 +114,8 @@ def make_wall_config(nc: int = NC_GLOBAL, n: int = N_PER_SPECIES, *,
     The sizes are the published ones (``make_config``) unless ``nc`` and
     ``n`` cut them; each species has ceil(1.6 n) slots, ``CAPACITY`` at
     the published n."""
-    cap = -(-8 * n // 5)
-    species = (
-        pic.SpeciesConfig("e", -1.0, 1.0, cap, n, vth=1.0),
-        pic.SpeciesConfig("D+", 1.0, 3672.0, cap, n, vth=0.016),
-        pic.SpeciesConfig("D", 0.0, 3672.0, cap, n, vth=0.016),
-    )
     return pic.PICConfig(
-        nc=nc, dx=1.0, dt=0.2, species=species, field_solve=True,
+        nc=nc, dx=1.0, dt=0.2, species=_s33_species(n), field_solve=True,
         smoothing_passes=1, boundary="absorb", strategy=strategy,
         eps0=WALL_EPS0, wall_emission=((0, 0),),
         emission_yield=emission_yield, emission_vth=0.5,
@@ -113,25 +123,63 @@ def make_wall_config(nc: int = NC_GLOBAL, n: int = N_PER_SPECIES, *,
     )
 
 
+def make_field_config(nc: int = NC_GLOBAL, n: int = N_PER_SPECIES, *,
+                      strategy: str = "fused",
+                      diag_every: int = 1) -> pic.PICConfig:
+    """The published §3.3 test (periodic, MC ionization at 1e-4) with the
+    field on at ``WALL_EPS0``, as production runs of the plasma solve it:
+    one smoothing pass, the float64 Poisson solve with phi = 0 at both
+    global ends (the engine's and the cycle's field, whatever the particle
+    boundary). Sizes and slots as ``make_wall_config``'s."""
+    return pic.PICConfig(
+        nc=nc, dx=1.0, dt=0.2, species=_s33_species(n), field_solve=True,
+        smoothing_passes=1, boundary="periodic", strategy=strategy,
+        eps0=WALL_EPS0, ionization=(2, 0, 1), ionization_rate=1e-4,
+        ionization_vth_e=1.0, diag_every=diag_every,
+    )
+
+
+def quasi_neutral(species):
+    """The species with the ions (D+, species 1) moved onto the electrons'
+    (species 0) positions, a quasi-neutral load; buffers of any leading
+    shape (one domain's (cap,) or the engine's (D, cap_l)). Positions
+    drawn apart leave a charge noise whose long-wavelength field holds
+    ~28x the electrons' thermal energy at the published size (E rms ~9 at
+    eps0 100), so the run would begin with a noise-driven oscillation; the
+    paired load starts the field from zero."""
+    ele, ion = species[0], species[1]
+    if not torch.equal(ele.alive, ion.alive):
+        raise ValueError("a quasi-neutral load needs an ion alive in each "
+                         "electron's slot, in buffers of one capacity")
+    return (ele, dataclasses.replace(ion, x=ele.x.clone()), *species[2:])
+
+
 def wall_state(cfg: pic.PICConfig, seed: int = 0,
                device="cuda") -> pic.PICState:
-    """The wall deployment's initial state: ``pic.init_state``'s with the
-    ions (D+, species 1) moved onto the electrons' (species 0) positions,
-    a quasi-neutral load. Positions drawn apart leave a charge noise whose
-    long-wavelength field holds ~28x the electrons' thermal energy at the
-    published size (E rms ~9 at eps0 100), so the run would begin with a
-    noise-driven oscillation; the paired load starts the field from zero
-    and the walls' sheath from the thermal flux."""
+    """The single-domain initial state of the field-on deployments (the
+    walls' and ``make_field_config``'s): ``pic.init_state``'s with the
+    ions on the electrons' positions (``quasi_neutral``), and the carried
+    rho of the loaded rows; the walls' sheath then starts from the
+    thermal flux."""
     state = pic.init_state(cfg, seed, device)
-    ele, ion = state.species[0], state.species[1]
-    if (ele.capacity, cfg.species[0].n_init) != (ion.capacity,
-                                                 cfg.species[1].n_init):
-        raise ValueError("a quasi-neutral load needs as many electrons as "
-                         "ions, in buffers of one capacity")
-    species = (ele, dataclasses.replace(ion, x=ele.x.clone()),
-               *state.species[2:])
+    species = quasi_neutral(state.species)
     rho = pic.compute_rho(cfg, species) if state.rho is not None else None
     return dataclasses.replace(state, species=species, rho=rho)
+
+
+def field_engine_state(ecfg, seed: int = 0, device="cuda"):
+    """The engine's initial state of a field-on deployment:
+    ``engine.init_engine_state``'s per-domain draw with each domain's ions
+    on its electrons' positions (``quasi_neutral``), the carried rho
+    deposited from the loaded rows (``attach_engine_state``), and the
+    domains' generators where the draw left them."""
+    from repro_torch.distributed import engine  # deferred: configs stay light
+
+    drawn = engine.init_engine_state(ecfg, seed, device)
+    loaded = pic.PICState(species=quasi_neutral(drawn.species), gen=None,
+                          step=0, rho=None)
+    state = engine.attach_engine_state(ecfg, loaded, seed)
+    return dataclasses.replace(state, gens=drawn.gens)
 
 
 def make_resilience_config(nc: int = 64, n: int = 1024,

@@ -37,7 +37,10 @@ buffers, ring rows and carried rho), per (domain, queue)
 ``engine/slice/q<k>`` (the queue's gather) and ``engine/ring/q<k>`` (its
 turn in the domain's ring chain, holding ``engine/births/q<k>`` and the SEE
 stage) beside the stages, ``engine/join`` (the wait for every queue) and
-``engine/release`` (the step's working set freed).
+``engine/release`` (the step's working set freed). Where the rho is
+carried, ``engine/rho/q<k>`` (in the migration) holds the leavers' deposit
+and ``engine/merge/rho`` the merged rows'; a step that carries none enters
+neither.
 
 No host synchronisation inside a step: packing is done by prefix sums
 (``particles.nonzero_static``), never ``torch.nonzero``, and no ``.item()``
@@ -904,9 +907,11 @@ def _migrate(plan: _Plan, w: _Work, r, g, k, out: StackedSpecies):
          dmig) = _exchange_queue(out, plan.grid.length, plan.m_q,
                                  cfg.boundary, r == 0, r == plan.d - 1,
                                  plan.top)
-        lv_rho = (deposit_windowed(plan.grid, lv_x,
-                                   w.gconsts[g][2][:, None] * lv_w)
-                  if plan.carried else None)
+        lv_rho = None
+        if plan.carried:
+            with phase_scope(f"engine/rho/q{k}"):
+                lv_rho = deposit_windowed(plan.grid, lv_x,
+                                          w.gconsts[g][2][:, None] * lv_w)
         # the copies to the neighbours, on this stream
         halo.send(w.recv[g], ((r + 1) % plan.d, slice(None), k, 0), pack_r)
         halo.send(w.recv[g], ((r - 1) % plan.d, slice(None), k, 1), pack_l)
@@ -1068,9 +1073,11 @@ def _merge(plan: _Plan, w: _Work) -> None:
                 dep_rows = cand_all
                 dep_w = cand_all.w * accepted
             if plan.carried:
-                for r in range(d):
-                    w.rho_acc[r] = w.rho_acc[r] + deposit_windowed(
-                        plan.grid, dep_rows.x[r], charges[:, None] * dep_w[r])
+                with phase_scope("engine/merge/rho"):
+                    for r in range(d):
+                        w.rho_acc[r] = w.rho_acc[r] + deposit_windowed(
+                            plan.grid, dep_rows.x[r],
+                            charges[:, None] * dep_w[r])
             for j, i in enumerate(idxs):
                 w.dacc(plan.cfg.species[i].name, "merge_dropped",
                        dropped[:, j].sum())

@@ -6,7 +6,7 @@ multi-domain.
         [--domains 4] [--async-n 2] [--rebalance-every K] \
         [--rebalance-skew T] [--cell-order] [--max-births N] \
         [--strategy unified|explicit|async_batched|fused] \
-        [--scenario bench|wall] [--field-solve] [--see-yield Y] \
+        [--scenario bench|wall|field] [--field-solve] [--see-yield Y] \
         [--collisions elastic,cx,coulomb] \
         [--diag-every K] [--phases] [--device cuda|cpu] \
         [--profile-dir DIR] [--metrics-jsonl FILE] [--autotune] \
@@ -20,7 +20,11 @@ is ``make_wall_config(nc, particles)`` instead: the field on at eps0 100
 between grounded absorbing walls, SEE at yield 0.5 (or --see-yield Y),
 ionization off, the ions loaded at the electrons' positions
 (``wall_state``); it runs the single-domain cycle (the published scale:
---nc 102400 --particles 10485760 --strategy fused). --collisions
+--nc 102400 --particles 10485760 --strategy fused). --scenario field is
+``make_field_config(nc, particles)``: the periodic §3.3 test, ionization
+1e-4, with the field on at eps0 100 and the same quasi-neutral load, on
+one domain (``wall_state``) or through the engine (``field_engine_state``:
+each domain's ions at its electrons' positions). --collisions
 adds the binary-collision menu (the deflection through ``ta_kick_ref``, as
 the reference launcher leaves ``collide_kernel`` off). It runs on the CUDA
 device unless --device cpu is given, and stops with an error when no card
@@ -102,10 +106,11 @@ def main(argv=None) -> None:
                     choices=["unified", "explicit", "async_batched",
                              "fused"])
     ap.add_argument("--scenario", default="bench",
-                    choices=["bench", "wall"],
+                    choices=["bench", "wall", "field"],
                     help="'bench': the §3.3 ionization test; 'wall': the "
                          "§3.3 plasma between grounded absorbing walls, "
-                         "field on, with secondary electron emission")
+                         "field on, with secondary electron emission; "
+                         "'field': the §3.3 test with the field on")
     ap.add_argument("--field-solve", action="store_true",
                     help="enable the field phase (the paper's benchmark "
                          "scenario disables it)")
@@ -163,6 +168,10 @@ def main(argv=None) -> None:
     if args.scenario == "wall" and (engine_path or args.ensemble):
         ap.error("--scenario wall runs the single-domain cycle; it excludes "
                  "the engine, checkpoint, auto-tuner and ensemble flags")
+    if args.scenario == "field" and (args.ensemble or args.see_yield):
+        ap.error("--scenario field is the periodic plasma from a "
+                 "quasi-neutral load; it excludes --ensemble and "
+                 "--see-yield")
     if args.ensemble and (args.domains > 1 or args.async_n > 1 or resilient
                           or args.autotune):
         ap.error("--ensemble is the single-device serving demo; it excludes "
@@ -171,9 +180,11 @@ def main(argv=None) -> None:
 
     import torch
 
-    from repro_torch.configs.pic_bit1 import (make_bench_config,
+    from repro_torch.configs.pic_bit1 import (field_engine_state,
+                                              make_bench_config,
                                               make_collision_menu,
                                               make_engine_config,
+                                              make_field_config,
                                               make_see_config,
                                               make_wall_config, wall_state)
     from repro_torch.core import pic
@@ -186,6 +197,10 @@ def main(argv=None) -> None:
                                strategy=args.strategy,
                                emission_yield=args.see_yield or 0.5,
                                diag_every=args.diag_every)
+    elif args.scenario == "field":
+        cfg = make_field_config(nc=args.nc, n=args.particles,
+                                strategy=args.strategy,
+                                diag_every=args.diag_every)
     elif args.see_yield > 0.0:
         cfg = make_see_config(nc=args.nc, n=args.particles,
                               strategy=args.strategy,
@@ -211,7 +226,8 @@ def main(argv=None) -> None:
     balance = {}
     walls = {}
     if not engine_path:
-        state = (wall_state(cfg, 0, device=dev) if args.scenario == "wall"
+        state = (wall_state(cfg, 0, device=dev)
+                 if args.scenario in ("wall", "field")
                  else pic.init_state(cfg, 0, device=dev))
         with _observed(args):
             final, diags = pic.run(cfg, args.steps, state=state)
@@ -235,7 +251,9 @@ def main(argv=None) -> None:
                                   rebalance_skew=args.rebalance_skew,
                                   cell_order=args.cell_order,
                                   metrics=want_stream)
-        state = engine.init_engine_state(ecfg, 0, device=dev)
+        state = (field_engine_state(ecfg, 0, device=dev)
+                 if args.scenario == "field"
+                 else engine.init_engine_state(ecfg, 0, device=dev))
         stream = None
         if want_stream:
             stream = MetricsStream(

@@ -67,7 +67,7 @@ PORT_ONLY_SPANS = (
     "cycle/ionize", "cycle/diag",
     "engine/step", "engine/buffers", "engine/queue/q<k>",
     "engine/slice/q<k>", "engine/births/q<k>", "engine/ring/q<k>",
-    "engine/join", "engine/release",
+    "engine/rho/q<k>", "engine/join", "engine/merge/rho", "engine/release",
 )
 _QUEUE = re.compile(r"/q\d+$")
 

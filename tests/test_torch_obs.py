@@ -275,8 +275,10 @@ def test_port_only_span_names_are_pinned():
         "cycle/see", "cycle/ionize", "cycle/diag",
         "engine/step", "engine/buffers", "engine/queue/q<k>",
         "engine/slice/q<k>", "engine/births/q<k>", "engine/ring/q<k>",
-        "engine/join", "engine/release")
+        "engine/rho/q<k>", "engine/join", "engine/merge/rho",
+        "engine/release")
     assert tracing.port_only("engine/queue/q12")
+    assert tracing.port_only("engine/rho/q3")
     assert tracing.port_only("engine/ring/q0")
     assert not tracing.port_only("engine/queue")
     for name in ("engine/push/q0", "engine/see/q3", "engine/ingest",

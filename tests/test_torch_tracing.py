@@ -174,6 +174,45 @@ def test_cycle_phases_enter_in_order(kw, step, want):
     assert names == want
 
 
+def _engine_order(field: bool, carried: bool) -> list[str]:
+    """The scopes a 2-domain async(2) step of ``_churn`` enters, in order:
+    the field's halo scopes where the field is on, the carried rho's where
+    it is carried."""
+    pp = ["halo/ppermute"] * 2
+    names = ["engine/step", "engine/ingest", "engine/field"]
+    if field:
+        names += (["halo/sum", *pp, "halo/smooth", *pp, "halo/poisson",
+                   "halo/efield", *pp])
+    names += ["engine/sources", "halo/sum", *pp, "engine/collide_setup",
+              "engine/buffers"]
+    for _ in range(2):
+        for k in range(2):
+            names += [f"engine/{s}/q{k}" for s in (
+                "queue", "slice", "push", "collide", "ionize", "migrate")]
+            names += [f"engine/rho/q{k}"] * carried + pp
+            names += [f"engine/{s}/q{k}" for s in ("ring", "births", "see")]
+    names += ["engine/join", "engine/merge"]
+    names += ["engine/merge/rho"] * carried
+    return names + ["engine/diag", "engine/release"]
+
+
+@pytest.mark.parametrize("field", [False, True], ids=["field_off",
+                                                      "field_on"])
+def test_engine_phases_enter_in_order(field):
+    """A field-off engine step enters the scopes it always has; with the
+    field on and the rho carried, the step adds the halo field's scopes and
+    ``engine/rho/q<k>`` and ``engine/merge/rho`` around the carried rho's
+    deposits."""
+    ecfg = engine.EngineConfig(pic=_churn(field_solve=field), domains=2,
+                               async_n=2, max_migration=64, max_births=64)
+    assert engine._carries_rho(ecfg) is field
+    state = engine.init_engine_state(ecfg, 0, device="cpu")
+    step = engine.make_engine_step(ecfg, donate=False)
+    with tracing.capture_scopes() as names:
+        step(state)
+    assert names == _engine_order(field, field)
+
+
 def test_recording_without_a_profiler(monkeypatch):
     """``recording()`` records spans and enters no ``record_function``;
     ``spans()`` leaves the list to the next reader, ``reset()`` clears it;
