@@ -93,9 +93,14 @@ Phases (any failure raises and ends the run with a non-zero exit):
    (domains, async_n) = (1, 1), (4, 1), (4, 4), 5 steps each, with exact
    pair accounting, every overflow counter 0, charge equal to the counts,
    the launches of every step pinned by kernel and deposit form
-   (``engine_launches``), host ms/step, a 2-step profile (device busy,
-   and the time kernels on different streams overlap, read from the
-   trace's stream ids after a calibration with two spin kernels) and
+   (``engine_launches``; the first step runs eagerly, the second
+   captures the step's CUDA graph, which calls every wrapper and launches
+   nothing, and replays it; a replay launches a step's kernels and calls
+   no wrapper: ``graph_runs`` counts what ran on the card), host ms/step,
+   a 2-step profile of replays (device busy, the time kernels on
+   different streams overlap, read from the trace's stream ids after a
+   calibration with two spin kernels, and each hand-written kernel's
+   launches a replay, by name in the trace, held to ``engine_launches``) and
    ``perf.phase_breakdown``; async_n 1 against 4 at D = 4 (ionization
    off: counts and charge equal, KE within 1e-5); the collision menu with
    ``collide_kernel=True`` at D = 4, async_n 4 (``coulomb_pairs`` once a
@@ -106,13 +111,20 @@ Phases (any failure raises and ends the run with a non-zero exit):
    --domains 4 --async-n 4 --field-solve --phases`` at full size, its
    lines in the reference launcher's form, then one line a span name
    (host self and device ms a step);
+9b. ``tests/test_torch_engine_graph_card.py`` in a pytest subprocess: the
+   engine step replayed as a CUDA graph equal to the eager step bit for
+   bit (rows, rings, pending blocks, diagnostics; the carried rho within
+   1e-6), with the generators and with draws, field off and on, across
+   an episode restore (``python3 chip_smoke.py --engine-graph`` runs it
+   alone, after the build);
 10. the engine's observability and resilience (after phase 9), at the
    §3.3 configuration with the field solve and ionization at D 4 x
    async_n 4, and at its bitwise configuration (field solve and ionization
    off: no float atomics), with the kernels' launch counts set to 0
    before each path and every step's launches pinned by
-   ``engine_launches``: (a) two steps under ``obs.tracing.trace_session``,
-   whose trace holds every scope name the steps entered; then the host
+   ``engine_launches``: (a) two eager steps under
+   ``obs.tracing.trace_session``, whose trace holds every scope name the
+   steps entered; then the host
    ms/step plain, under the profiler and with the metrics stream, in
    alternating windows on one state of the §3.3 test with the field
    solve off (quartiles, and the device busy a traced step from each
@@ -1088,19 +1100,28 @@ def grid_lines(dev, deposit, fused_cycle, st, cfg, gen):
 
 # ---------------------------------------------------------------- phase 3 --
 
+# launches the wrappers' counters miscount on the engine's CUDA-graph
+# path, by counter name (``graph_runs``): a capture calls every wrapper
+# and launches nothing, a replay launches a step's kernels and calls no
+# wrapper. ``launches`` adds them, ``reset_launches`` clears them.
+GRAPH_LAUNCHES: dict = {}
+
+
 def launches(counters):
-    """Each kernel's launch count and, for the two deposit kernels, its
-    count by form ("fused_push_deposit/block", ...)."""
+    """Each kernel's launches on the card and, for the two deposit
+    kernels, its launches by form ("fused_push_deposit/block", ...): the
+    wrappers' counts, corrected by ``GRAPH_LAUNCHES``."""
     out = {}
     for name, fn in counters.items():
         out[name] = fn.launches
         for attr, n in sorted(vars(fn).items()):
             if attr.startswith("launches_"):
                 out[f"{name}/{attr.removeprefix('launches_')}"] = n
-    return out
+    return {k: n + GRAPH_LAUNCHES.get(k, 0) for k, n in out.items()}
 
 
 def reset_launches(counters):
+    GRAPH_LAUNCHES.clear()
     for fn in counters.values():
         for attr in list(vars(fn)):
             if attr.startswith("launches"):
@@ -1912,6 +1933,7 @@ def drive_engine(ecfg, steps, label, counters, dev, seed=0):
     the menu is on. Returns (state, steady ms/step, launches, last diag,
     sums of the event counters)."""
     from repro_torch.distributed import engine
+    from repro_torch.obs import tracing
 
     cfg = ecfg.pic
     per_step = engine_launches(ecfg)
@@ -1923,18 +1945,23 @@ def drive_engine(ecfg, steps, label, counters, dev, seed=0):
     times = []
     reset_launches(counters)
     diag = {}
+    replays = 0
     for k in range(steps):
         before = launches(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, diag = step(state)
+        with tracing.capture_scopes() as names:
+            state, diag = step(state)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        ran = graph_runs(names, per_step)
         after = launches(counters)
         delta = {n: after[n] - before[n] for n in after}
-        if delta != per_step:
+        want = {n: v * ran for n, v in per_step.items()}
+        if delta != want:
             raise AssertionError(f"{label} step {k}: launches {delta}, "
-                                 f"expected {per_step}")
+                                 f"expected {want}")
+        replays += names.count("engine/graph/replay")
         for key, v in diag.items():
             tail = key.rsplit("/", 1)[-1]
             if tail in ("n_ionized", "birth_overflow", "migration_overflow",
@@ -1970,11 +1997,14 @@ def drive_engine(ecfg, steps, label, counters, dev, seed=0):
                 f"{n0[1]}->{ni}, D {n0[2]}->{nn}, ionized {ionized}")
     elif counts != n0:
         raise AssertionError(f"{label}: counts moved {n0} -> {counts}")
-    steady = statistics.median(times[1:]) if steps > 1 else times[0]
+    if steps > 1 and replays != steps - 1:
+        raise AssertionError(f"{label}: {replays} of the {steps - 1} steps "
+                             f"after the first replayed the step's graph")
+    steady = statistics.median(times[2:] or times[1:] or times)
     log(f"engine {label}: {steps} steps, ms/step "
-        f"{[round(t, 3) for t in times]} (median after the first "
-        f"{steady:.3f}), populations {counts}, sums {sums}; launches a step "
-        f"{per_step}; peak memory "
+        f"{[round(t, 3) for t in times]} (median of the replays after the "
+        f"capture {steady:.3f}), populations {counts}, sums {sums}; launches "
+        f"a step run eagerly or replayed {per_step}; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     return state, steady, launches(counters), diag, sums
 
@@ -2055,15 +2085,62 @@ def trace_calibration():
     return overlap / 1e3
 
 
+# each launch counter's kernels by the names they run under in a trace;
+# a deposit in the block form adds a ``sum_rows_kernel``, one in the pair
+# form a ``pair_finish_kernel``
+TRACE_KERNELS = {
+    "fused_push_deposit": ("fused_push_deposit_kernel", "fused_block_kernel"),
+    "mover_push": ("mover_push_kernel",),
+    "deposit": ("deposit_kernel", "deposit_block_kernel"),
+    "ta_kick": ("ta_kick_kernel",),
+    "coulomb_pairs": ("coulomb_pairs_kernel",),
+    "cell_density": ("cell_density_kernel",),
+    "place_births": ("place_births_kernel",),
+    "deposit rows": ("sum_rows_kernel",),
+    "deposit finish": ("pair_finish_kernel",),
+}
+
+
+def trace_launches(events, steps) -> dict:
+    """Launches a step of ``TRACE_KERNELS``' kernels in a trace's
+    ``key_averages()`` over ``steps`` steps, matched by the kernel's own
+    name (``deposit_kernel`` is not ``fused_push_deposit_kernel``)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(TRACE_KERNELS, 0)
+    for e in events:
+        if e.device_type == DeviceType.CPU:
+            continue
+        for key, names in TRACE_KERNELS.items():
+            if any(re.search(rf"(^|[\s:]){n}[<(]", e.key) for n in names):
+                out[key] += e.count
+    return {k: n / steps for k, n in out.items()}
+
+
+def trace_want(per_step) -> dict:
+    """``trace_launches``' counts of a step that launches ``per_step``."""
+    want = {k: per_step[k] for k in TRACE_KERNELS if k in per_step}
+    for key, form in (("deposit rows", "block"), ("deposit finish", "pair")):
+        want[key] = (per_step[f"fused_push_deposit/{form}"]
+                     + per_step[f"deposit/{form}"])
+    return want
+
+
 def profile_engine(ecfg, state, label, host_ms, steps=2):
     """Device busy of an engine step and the time kernels on different
-    streams overlap, from a torch.profiler trace of ``steps`` steps; device
-    time by kernel beside ``host_ms``, the unprofiled step. Returns (busy
-    ms, overlap ms) a step."""
+    streams overlap, from a torch.profiler trace of ``steps`` replays of
+    the step's graph; device time by kernel beside ``host_ms``, the
+    unprofiled step; each hand-written kernel's launches a replay, by name
+    in the trace, held to ``engine_launches``. Returns (busy ms, overlap
+    ms) a step."""
     from repro_torch.distributed import engine
+    from repro_torch.obs import tracing
 
     step = engine.make_engine_step(ecfg)
-    state, _ = step(state)
+    for _ in range(2):             # eager, then the graph's capture
+        state, _ = step(state)
     torch.cuda.synchronize()
     box = [state]
 
@@ -2071,11 +2148,22 @@ def profile_engine(ecfg, state, label, host_ms, steps=2):
         for _ in range(steps):
             box[0], _ = step(box[0])
 
-    prof, iv = trace_overlap(run, f"engine_{label}")
+    with tracing.capture_scopes() as names:
+        prof, iv = trace_overlap(run, f"engine_{label}")
+    if names.count("engine/graph/replay") != steps:
+        raise AssertionError(f"profile {label}: {steps} steps, "
+                             f"{names.count('engine/graph/replay')} replays")
     if not iv:
         log(f"profile of an engine step {label}: no device events in the "
             f"trace (not measured)")
         return None, None
+    got = trace_launches(prof.key_averages(), steps)
+    want = trace_want(engine_launches(ecfg))
+    if got != want:
+        raise AssertionError(f"profile {label}: launches a replay by name "
+                             f"in the trace {got}, expected {want}")
+    log(f"profile of an engine step {label}: launches a replay by name in "
+        f"the trace {got}, as engine_launches has them")
     busy, overlap, n_streams = busy_and_overlap(iv)
     kernel_sum = sum(e - s for s, e, _ in iv)
     log(f"profile of an engine step {label}: device busy "
@@ -2269,8 +2357,10 @@ def engine_phase(dev):
         state, ms, paths[label], _, _ = drive_engine(
             ecfg, ENGINE_STEPS, f"§3.3 field + ionization, D {d}, async_n "
             f"{n_q}", counters, dev)
-        busy, overlap = profile_engine(ecfg, state, label, ms)
+        # phase_breakdown steps a copy of the state; profile_engine then
+        # donates it
         probe = perf.phase_breakdown(ecfg, iters=3, warmup=1, state=state)
+        busy, overlap = profile_engine(ecfg, state, label, ms)
         log(f"engine {label} per-phase (device µs a step, from the spans): "
             + ", ".join(f"{k} {v:.1f}" for k, v in probe["phases"].items())
             + f"; total {probe['total']:.1f}")
@@ -2327,6 +2417,36 @@ def engine_phase(dev):
     return counts, numbers
 
 
+# the flag that runs phase 9b alone, after the build
+ENGINE_GRAPH_FLAG = "--engine-graph"
+
+
+def engine_graph_phase() -> float:
+    """Phase 9b: ``tests/test_torch_engine_graph_card.py`` (the engine step
+    replayed as a CUDA graph against the eager step, bit for bit, with
+    the generators and with draws, field off and on) in a pytest
+    subprocess on the card. Returns its seconds."""
+    import os
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         str(ROOT / "tests" / "test_torch_engine_graph_card.py")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=1800)
+    for line in run.stdout.strip().splitlines()[-12:]:
+        log(f"  engine graph: {line}")
+    if run.returncode != 0 or " passed" not in run.stdout \
+            or "skipped" in run.stdout:
+        raise AssertionError(f"phase 9b: the engine graph tests failed "
+                             f"(exit {run.returncode}):\n{run.stdout[-4000:]}"
+                             f"\n{run.stderr[-2000:]}")
+    secs = time.perf_counter() - t0
+    log(f"phase 9b: the engine step's graph replays equal its eager steps "
+        f"({secs:.1f} s)")
+    return secs
+
+
 # ---------------------------------------------------------------- phase 10 --
 
 # the observability and resilience phase's files, under build/ of the
@@ -2351,19 +2471,41 @@ def bitwise_pic():
                                ionization=None)
 
 
+def graph_runs(names, per_step) -> int:
+    """Engine steps among the scope names ``names`` that ran on the card,
+    each launching ``per_step``: the eager steps and the replays of the
+    step's CUDA graph. Every step that ran its phases entered
+    ``engine/ingest`` once, eagerly or into a capture, and called the
+    wrappers; a capture launches nothing and a replay calls no wrapper,
+    so ``GRAPH_LAUNCHES`` takes ``per_step`` off for each capture and
+    adds it for each replay. Then the wrappers' calls were right exactly
+    where ``launches`` moved by ``per_step`` times the steps returned."""
+    extra = (names.count("engine/graph/replay")
+             - names.count("engine/graph/capture"))
+    for n, v in per_step.items():
+        GRAPH_LAUNCHES[n] = GRAPH_LAUNCHES.get(n, 0) + extra * v
+    return names.count("engine/ingest") + extra
+
+
 def pinned(step, ecfg, counters, label):
     """``step`` with the kernels' launches of each call held to
-    ``engine_launches(ecfg)``."""
+    ``engine_launches(ecfg)`` (``graph_runs``: a capture launches none, a
+    replay launches a step's)."""
+    from repro_torch.obs import tracing
+
     per_step = engine_launches(ecfg)
 
     def run(state, *args):
         before = launches(counters)
-        out = step(state, *args)
+        with tracing.capture_scopes() as names:
+            out = step(state, *args)
+        ran = graph_runs(names, per_step)
         after = launches(counters)
         delta = {n: after[n] - before[n] for n in after}
-        if delta != per_step:
+        want = {n: v * ran for n, v in per_step.items()}
+        if delta != want:
             raise AssertionError(f"{label}: launches {delta}, expected "
-                                 f"{per_step}")
+                                 f"{want}")
         return out
 
     return run
@@ -2440,15 +2582,23 @@ def restart_drill(ecfg, label, exact, counters, dev, ckdir):
     from repro_torch.runtime.fault_tolerance import (FailureInjector,
                                                      SimulatedFailure)
 
-    pinned_step = pinned(engine.make_engine_step(ecfg), ecfg, counters,
-                         label)
     last = {}
 
-    def step(state):
-        out = pinned_step(state)
-        last["state"] = out[0]
-        return out
+    def stepper():
+        # one step function a run, as each run is a process of its own: on
+        # the card a step's output lives in its function's buffers until
+        # that function's next call
+        pinned_step = pinned(engine.make_engine_step(ecfg), ecfg, counters,
+                             label)
 
+        def step(state):
+            out = pinned_step(state)
+            last["state"] = out[0]
+            return out
+
+        return step
+
+    step = stepper()
     init = engine.init_engine_state(ecfg, 0, device=dev)
     n0 = resident_counts(init)
     ck = Checkpointer(str(ckdir))
@@ -2473,8 +2623,9 @@ def restart_drill(ecfg, label, exact, counters, dev, ckdir):
     check_states_bitwise(f"{label} restored vs in memory", state, mem)
     fin, diags = resilience.run_engine(
         ecfg, state, num_steps=6, ckpt=ck, ckpt_every=2, injector=inj,
-        step_fn=step, stream=stream)
+        step_fn=stepper(), stream=stream)
     last_write_ms = ck.last_write_us / 1e3
+    # the failed run's own step function, on its last output
     ref, ref_diags = resilience.run_engine(ecfg, mem, num_steps=6,
                                            step_fn=step)
     recs = [m for m in stream.window(99) if "ckpt/bytes" in m.counters]
@@ -2490,7 +2641,7 @@ def restart_drill(ecfg, label, exact, counters, dev, ckdir):
         check_diags_bitwise(label, ref_diags, diags)
         again, _ = resilience.run_engine(
             ecfg, engine.init_engine_state(ecfg, 0, device=dev),
-            num_steps=6, step_fn=step, collect=False)
+            num_steps=6, step_fn=stepper(), collect=False)
         check_states_bitwise(f"{label} second run", fin, again)
         del again
         extra = ("the restored state, every leaf, generator state and "
@@ -2707,8 +2858,9 @@ def pic_run_config():
 
 def pic_run_lines(argv, counters, steps, label):
     """``pic_run`` with ``argv`` in this process: its lines, and its
-    launches held to ``steps`` engine steps of its configuration plus the
-    initial state's deposit of the carried rho (one a domain)."""
+    launches held to those of its ``steps`` engine steps (``graph_runs``:
+    a capture launches none, a replay launches a step's) plus the initial
+    state's deposit of the carried rho (one a domain)."""
     import contextlib
     import io
 
@@ -2720,16 +2872,26 @@ def pic_run_lines(argv, counters, steps, label):
     per_step = engine_launches(ecfg)
     init = ecfg.domains * len(engine._capacity_groups(ecfg))
     form = deposit_form(ecfg.local_nc() + 1)
+    from repro_torch.obs import tracing
+
     reset_launches(counters)
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), \
+            tracing.capture_scopes() as names:
         pic_run.main(argv)
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
         log(f"  pic_run {label}: {line[:240]}")
+    if names.count("engine/step") != steps:
+        raise AssertionError(f"pic_run {label}: {names.count('engine/step')}"
+                             f" engine steps, expected {steps}")
+    ran = graph_runs(names, per_step)
     counts = launches(counters)
-    want = {n: steps * v + (init if n in ("deposit", f"deposit/{form}")
-                            else 0) for n, v in per_step.items()}
+    if ran != steps:
+        raise AssertionError(f"pic_run {label}: {ran} engine steps ran on "
+                             f"the card, expected {steps}")
+    want = {n: ran * v + (init if n in ("deposit", f"deposit/{form}")
+                          else 0) for n, v in per_step.items()}
     if counts != want:
         raise AssertionError(f"pic_run {label}: launches {counts}, expected "
                              f"{want}")
@@ -2928,7 +3090,10 @@ def obs_phase(dev):
     # (a) tracing: two steps under trace_session; every scope the steps
     # entered is a range of the trace, and the card's work is in it
     reset_launches(counters)
-    step = pinned(engine.make_engine_step(full), full, counters, "(a)")
+    # the phases' ranges: eager steps (a replay opens engine/graph/replay
+    # alone)
+    step = pinned(engine.make_engine_step(full, graph=False), full,
+                  counters, "(a)")
     state, _ = timed_steps(step, engine.init_engine_state(
         full, 0, device=dev), 1)
     tdir = OBS_DIR / "trace"
@@ -3033,7 +3198,10 @@ def obs_phase(dev):
     for k in range(8):
         per_step = engine_launches(tuner.ecfg)
         before = launches(counters)
-        state, diag = tuner.run_step(state)
+        with tracing.capture_scopes() as names:
+            state, diag = tuner.run_step(state)
+        if graph_runs(names, per_step) != 1:
+            raise AssertionError(f"(e) step {k}: scopes {names}")
         after = launches(counters)
         delta = {n: after[n] - before[n] for n in after}
         if delta != per_step:
@@ -4705,6 +4873,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     out = _build.build()
     log(f"build: {_build.build_seconds:.1f} s into {out.relative_to(ROOT)}")
+    if sys.argv[1:2] == [ENGINE_GRAPH_FLAG]:
+        engine_graph_phase()
+        log(smi)
+        return 0
     for src in ("mover", "collide", "births"):
         for line in (out / f"{src}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -4726,6 +4898,7 @@ def main() -> int:
     card_vs_cpu_phase(dev)
     collision_card_vs_cpu_phase(dev)
     engine_counts, eng = engine_phase(dev)
+    eng["graph_s"] = engine_graph_phase()
     obs_counts, obs = obs_phase(dev)
     serve_counts, serve = serve_phase(dev, ms["fused"])
     for k in PIC_KERNELS:

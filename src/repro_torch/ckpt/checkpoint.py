@@ -28,69 +28,23 @@ leaf's mesh and placements.
 
 from __future__ import annotations
 
-import dataclasses
 import io
 import json
 import os
 import threading
 import time
-from typing import Any, Callable, Iterator
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.sharding.rules import NamedSharding, is_dtensor, place
+from repro_torch.tree import children as _children
+from repro_torch.tree import leaves as _leaves
+from repro_torch.tree import rebuild as _rebuild
 
 SEP = "/"
-
-
-def _is_leaf(x: Any) -> bool:
-    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float,
-                          bool))
-
-
-def _children(tree: Any) -> list[tuple[str, Any]]:
-    """(path component, child) of one container node, in flattening
-    order."""
-    if dataclasses.is_dataclass(tree):
-        return [(f.name, getattr(tree, f.name))
-                for f in dataclasses.fields(tree)]
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [(n, getattr(tree, n)) for n in tree._fields]
-    if isinstance(tree, dict):
-        return [(str(k), tree[k]) for k in sorted(tree)]
-    if isinstance(tree, (list, tuple)):
-        return [(str(i), v) for i, v in enumerate(tree)]
-    raise TypeError(f"cannot checkpoint a {type(tree).__name__}")
-
-
-def _leaves(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
-    """(path, leaf) of every leaf, depth first."""
-    if tree is None:
-        return
-    if _is_leaf(tree):
-        yield path, tree
-        return
-    for name, child in _children(tree):
-        yield from _leaves(child, path + (name,))
-
-
-def _rebuild(tree: Any, fn: Callable, path: tuple = ()) -> Any:
-    """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
-    if tree is None:
-        return None
-    if _is_leaf(tree):
-        return fn(path, tree)
-    kids = {name: _rebuild(child, fn, path + (name,))
-            for name, child in _children(tree)}
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **kids)
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(**kids)
-    if isinstance(tree, dict):
-        return {k: kids[str(k)] for k in tree}
-    return type(tree)(kids[str(i)] for i in range(len(tree)))
 
 
 def _path_str(path: tuple) -> str:

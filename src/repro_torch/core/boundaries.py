@@ -54,7 +54,7 @@ def emission_candidates(gen: torch.Generator, hit_left: torch.Tensor,
     v = params.vth_emit * nrm
     vx = v[:, 0].abs()
     v[:, 0] = torch.where(hit_left, vx, -vx)
-    eps = torch.tensor(length, dtype=dtype, device=dev) * 1e-6
+    eps = torch.full((), length, dtype=dtype, device=dev) * 1e-6
     x = torch.where(hit_left, eps, length - eps).to(dtype)
     w = torch.full(hit.shape, params.weight, dtype=dtype, device=dev)
     return emit, x, v, w

@@ -291,7 +291,9 @@ def kill_packed(buf: SpeciesBuffer, idx: torch.Tensor,
     freed slots can feed ``ring_push`` without a scan."""
     cap = buf.capacity
     gone = torch.zeros(cap + 1, dtype=torch.bool, device=buf.x.device)
-    gone[torch.where(ok.bool(), idx.long(), cap)] = True
+    # index_fill_ takes the host scalar as a kernel argument; a set
+    # (gone[...] = True) would copy it to the card first
+    gone.index_fill_(0, torch.where(ok.bool(), idx.long(), cap), True)
     return kill(buf, gone[:cap])
 
 
@@ -328,13 +330,14 @@ def put_rows_(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
     count on the host: a row that is not ``ok`` writes the first ``ok``
     row's value to its index again (or, with none, dst[0] onto itself), so
     every index written twice gets one value. The ``ok`` indices must be
-    distinct."""
+    distinct. The fill row is taken by ``index_select`` with a (1,) index:
+    a 0-d tensor index would read it on the host."""
     idx, ok = idx.reshape(-1), ok.reshape(-1)
     val = val.reshape((-1,) + tuple(dst.shape[1:])).to(dst.dtype)
     anyv = ok.any()
-    first = torch.argmax(ok.to(torch.int32))
-    fill_i = torch.where(anyv, idx[first], 0)
-    fill_v = torch.where(anyv, val[first], dst[0])
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)
+    fill_i = torch.where(anyv, idx.index_select(0, first), 0)
+    fill_v = torch.where(anyv, val.index_select(0, first), dst[:1])
     okb = ok.reshape((-1,) + (1,) * (dst.dim() - 1))
     dst.index_put_((torch.where(ok, idx, fill_i),),
                    torch.where(okb, val, fill_v))

@@ -42,13 +42,22 @@ carried, ``engine/rho/q<k>`` (in the migration) holds the leavers' deposit
 and ``engine/merge/rho`` the merged rows'; a step that carries none enters
 neither.
 
-No host synchronisation inside a step: packing is done by prefix sums
-(``particles.nonzero_static``), never ``torch.nonzero``, and no ``.item()``
-is called, with one exception: with ``rebalance_skew > 0`` the step reads
-the (groups, D) tensor of per-domain occupancy skews once, after the
-ingest flush, to decide which domains compact (the reference branches on
-the same device value with ``lax.cond``). The periodic trigger is a host
-integer.
+No host read inside a step: packing is done by prefix sums
+(``particles.nonzero_static``), never ``torch.nonzero``; no ``.item()`` is
+called, and no tensor is indexed by a 0-d tensor, which ATen reads on the
+host (``particles.put_rows_`` takes its fill row by ``index_select``). The
+one exception: with ``rebalance_skew > 0`` the step reads the (groups, D)
+tensor of per-domain occupancy skews once, after the ingest flush, to
+decide which domains compact (the reference branches on the same device
+value with ``lax.cond``). The periodic trigger is a host integer.
+
+On a card the step is therefore captured as a CUDA graph and replayed
+(``_Graphs``): the queues' streams are branches forked from the capture
+stream and joined back by the step's own events, so the replay keeps the
+async(n) dependencies above, and the host's issue of the step's ~6,000
+launches leaves the critical path. A replay opens ``engine/graph/replay``
+inside ``engine/step`` and none of the phases' spans; a capture opens
+``engine/graph/capture`` around the phases' spans (without CUDA events).
 
 Divergences from the reference, kept on purpose:
 
@@ -61,9 +70,10 @@ Divergences from the reference, kept on purpose:
   split, which a float32 sum cannot be (the reference's
   ``test_domain_parity`` fails on exactly that).
 * The step donates its input state, as the reference's does: the ingest
-  writes the pending rows into the input's buffers in place;
-  ``donate=False`` copies first. The step has no probe mode:
-  ``perf.phase_breakdown`` reads the phases from the spans of real steps.
+  writes the pending rows into the input's buffers in place, and the
+  merge writes the queues back into them; ``donate=False`` copies first.
+  The step has no probe mode: ``perf.phase_breakdown`` reads the phases
+  from the spans of real (eager) steps.
 * Random numbers come from one ``torch.Generator`` per domain; ``draws=``
   takes the reference's arrays instead (see ``step``). The state keeps the
   reference's per-domain key, ``EngineState.key`` ((D, 2) uint32, the
@@ -109,7 +119,8 @@ from repro_torch.core.pic import _b_arg
 from repro_torch.core.pic import _carries_rho as pic_carries_rho
 from repro_torch.device import resolve_device
 from repro_torch.distributed import halo
-from repro_torch.obs.tracing import phase_scope
+from repro_torch.obs.tracing import graph_capture, phase_scope
+from repro_torch.tree import leaves, rebuild
 
 _SPECIES_FIELDS = ("x", "v", "w", "alive")
 _RING_FIELDS = ("slots", "head", "count")
@@ -566,6 +577,24 @@ def _plan(ecfg: EngineConfig) -> _Plan:
                      for g in range(len(groups))))
 
 
+# device -> the engine's streams on it: the graphs' capture stream, then
+# the queues' (domain r's queue k is 1 + r * async_n + k). One list a
+# process, made in one go and grown as needed: PyTorch hands out streams
+# from a pool of 32 a priority in turn, so streams made a step function
+# at a time (a retune, a test) would come round to the capture stream,
+# and a queue on the capture stream could reuse, before the join, memory
+# that another queue still reads.
+_STREAM_SETS: dict = {}
+
+
+def _streams(dev, n: int) -> list:
+    """The capture stream and at least ``n`` queue streams on ``dev``."""
+    have = _STREAM_SETS.setdefault(dev, [])
+    while len(have) < n + 1:
+        have.append(torch.cuda.Stream(dev))
+    return have
+
+
 class _Work:
     """One step's working set: its input state, its constants on the
     state's device, the group stacks and rings it replaces, and what each
@@ -578,11 +607,13 @@ class _Work:
         self.state, self.rp, self.draws, self.dev = state, rp, draws, dev
         self.card = dev.type == "cuda"
         if dev not in cache:
+            streams = _streams(dev, plan.d * plan.n_q) if self.card else None
             cache[dev] = (
                 [_group_consts(cfg, idxs, dev) for idxs in plan.groups],
                 [torch.tensor(idxs, device=dev) for idxs in plan.groups],
-                {(r, k): torch.cuda.Stream(dev) for r in range(plan.d)
-                 for k in range(plan.n_q)} if self.card else None)
+                {(r, k): streams[1 + r * plan.n_q + k]
+                 for r in range(plan.d) for k in range(plan.n_q)}
+                if self.card else None)
         gconsts, sel, self.streams = cache[dev]
         if rp is not None:
             # the params' dt*stride in place of the config's; q/m*dt is
@@ -636,7 +667,7 @@ class _Work:
 
 
 def make_engine_step(ecfg: EngineConfig, *, donate: bool = True,
-                     with_params: bool = False):
+                     with_params: bool = False, graph: bool = True):
     """Build the async(n) step: ``step(state, draws=None) -> (state,
     diag)``. The step donates its input state unless ``donate=False``.
 
@@ -651,38 +682,54 @@ def make_engine_step(ecfg: EngineConfig, *, donate: bool = True,
     queue, the ``emission_candidates`` arrays of the queue's pack) and
     ``"collide"`` (per queue, a dict group -> the menu draws of the
     group's entries), as the reference derives them from its keys.
+
+    On a CUDA device the step replays its work as a CUDA graph
+    (``_Graphs``) wherever the host need not read the card to branch; its
+    phases then open no spans. ``graph=False`` runs every step eagerly,
+    phase by phase (``perf.phase_breakdown``, ``pic_run --phases``). A
+    replayed step returns the step function's own buffers: the state it
+    returns holds until the function's next call, which writes them
+    whatever its input (copy a state to keep it longer); with
+    ``donate=False`` it returns copies.
     """
     plan = _plan(ecfg)
     # device -> (per-group (q/m, dt*stride, charges), per-group species
-    # index tensors, {(domain, queue): stream} on a card)
+    # index tensors, {(domain, queue): stream} on a card, from _streams)
     cache: dict = {}
+    graphs = _Graphs(plan, donate) if graph else None
+
+    def run(state: EngineState, params: RuntimeParams | None, draws,
+            donate: bool):
+        w = _Work(plan, cache, state, params, draws, donate)
+        _ingest(plan, w)
+        _field(plan, w)
+        _sources(plan, w)
+        _buffers(plan, w)
+        # the async(n) pipeline, domain by domain: queue k's push,
+        # collide, ionization and packing run on its own stream; its
+        # ring and rho updates wait for queue k-1's
+        for r in range(plan.d):
+            w.chain = None
+            for g in range(len(plan.groups)):
+                st = _map(w.sts[g], lambda a, r=r: a[r])
+                for k in range(plan.n_q):
+                    _queue_turn(plan, w, r, g, k, st)
+                w.keep.append(st)
+        _join(plan, w)
+        _merge(plan, w)
+        diag = _diag(plan, w)
+        out = EngineState(
+            groups=tuple(w.sts), group_species=plan.groups,
+            gens=state.gens, key=state.key, step=state.step + 1,
+            rho=w.rho_out, rings=tuple(w.rings), pending=tuple(w.pend))
+        _release(w)
+        return out, diag
 
     def step(state: EngineState, params: RuntimeParams | None, draws=None):
         with phase_scope("engine/step"):
-            w = _Work(plan, cache, state, params, draws, donate)
-            _ingest(plan, w)
-            _field(plan, w)
-            _sources(plan, w)
-            _buffers(plan, w)
-            # the async(n) pipeline, domain by domain: queue k's push,
-            # collide, ionization and packing run on its own stream; its
-            # ring and rho updates wait for queue k-1's
-            for r in range(plan.d):
-                w.chain = None
-                for g in range(len(plan.groups)):
-                    st = _map(w.sts[g], lambda a, r=r: a[r])
-                    for k in range(plan.n_q):
-                        _queue_turn(plan, w, r, g, k, st)
-                    w.keep.append(st)
-            _join(plan, w)
-            _merge(plan, w)
-            diag = _diag(plan, w)
-            out = EngineState(
-                groups=tuple(w.sts), group_species=plan.groups,
-                gens=state.gens, key=state.key, step=state.step + 1,
-                rho=w.rho_out, rings=tuple(w.rings), pending=tuple(w.pend))
-            _release(w)
-            return out, diag
+            if graphs is not None and graphs.takes(state, params):
+                return graphs.step(state, draws, run)
+            return run(state, params, draws, donate)
 
     if with_params:
         return step
@@ -691,6 +738,167 @@ def make_engine_step(ecfg: EngineConfig, *, donate: bool = True,
         return step(state, None, draws)
 
     return step_static
+
+
+# ------------------------------------------------------------ CUDA graphs
+
+
+def _parts(state: EngineState) -> tuple:
+    return state.groups, state.rings, state.pending, state.rho
+
+
+def _fields(state: EngineState) -> list[torch.Tensor]:
+    """The state's device tensors in a fixed order: each group's stack,
+    ring and pending block, then the carried rho (where there is one)."""
+    return [t for _, t in leaves(_parts(state))]
+
+
+def _with_fields(state: EngineState, tensors, step: int) -> EngineState:
+    """``state`` with ``tensors`` (in ``_fields``' order) and ``step``."""
+    it = iter(tensors)
+    groups, rings, pending, rho = rebuild(_parts(state), lambda _, t: next(it))
+    return dataclasses.replace(state, groups=groups, rings=rings,
+                               pending=pending, rho=rho, step=step)
+
+
+class _Diag:
+    """A step's diagnostics packed into one buffer a dtype, inside the
+    graph. ``read`` copies each buffer once, after a replay, and returns
+    the dict of views of the copies, so a later replay leaves it as it
+    was."""
+
+    def __init__(self, diag: dict):
+        parts: dict = {}
+        self.layout = []              # (key, dtype, offset, shape)
+        for key, v in diag.items():
+            row = parts.setdefault(v.dtype, [])
+            self.layout.append((key, v.dtype, sum(p.numel() for p in row),
+                                tuple(v.shape)))
+            row.append(v.reshape(-1))
+        self.bufs = {dt: torch.cat(row) for dt, row in parts.items()}
+
+    def read(self) -> dict:
+        copies = {dt: b.clone() for dt, b in self.bufs.items()}
+        return {key: copies[dt].narrow(0, off, int(np.prod(shape)))
+                .view(shape) for key, dt, off, shape in self.layout}
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: object                 # torch.cuda.CUDAGraph
+    draws: list                   # the static draw buffers, leaf by leaf
+    diag: _Diag
+
+
+class _Graphs:
+    """The step captured as CUDA graphs and replayed.
+
+    The step owns one set of device buffers of the state (``own``, in
+    ``_fields``' order) and captures its phases on them, donating them,
+    with the queues' streams forked from the capture stream and joined
+    back by the step's own events; the graph ends by copying each returned
+    tensor that is not already the owned one into it. A replay then reads
+    and writes ``own`` alone: a call on the step's last output runs in
+    place, any other input is copied in first (one device copy a tensor).
+    With ``donate=False`` the step returns copies of ``own``, so the
+    caller's input is never written. The domains' generators are
+    registered with each graph, so a replay draws the eager step's numbers
+    and moves the generators on as the eager step does.
+
+    A graph is captured once a branch of the host (``_branch``): the form
+    of ``draws`` (its leaves are copied into the graph's static buffers),
+    the species whose stride skips the step, and whether the periodic
+    rebalance is due. The graphs share one memory pool and are replayed
+    one at a time. The first step on a card runs eagerly (lazily loaded
+    kernels, the queues' streams), as does every step with runtime
+    parameters or with ``rebalance_skew > 0`` (its host read of the
+    skews). New generators or another layout of the state start the
+    graphs anew."""
+
+    def __init__(self, plan: _Plan, donate: bool):
+        self.plan, self.donate = plan, donate
+        self.warm = False             # an eager step has run on the card
+        self.own: list | None = None
+        self.layout = None            # shapes, dtypes, devices of own
+        self.gens: tuple = ()         # the generators the graphs register
+        self.graphs: dict = {}        # branch -> _Captured
+        self.pool = None
+
+    def takes(self, state: EngineState, params) -> bool:
+        return (params is None and self.plan.ecfg.rebalance_skew == 0
+                and state.groups[0].x.is_cuda)
+
+    def step(self, state: EngineState, draws, run):
+        if not self.warm:
+            self.warm = True
+            return run(state, None, draws, self.donate)
+        fields = _fields(state)
+        layout = tuple((t.shape, t.dtype, t.device) for t in fields)
+        if layout != self.layout:
+            self.own = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                        for t in fields]
+            self.layout = layout
+            self.graphs.clear()
+        if (len(state.gens) != len(self.gens)
+                or any(a is not b for a, b in zip(state.gens, self.gens))):
+            self.gens = tuple(state.gens)
+            self.graphs.clear()
+        for o, t in zip(self.own, fields):
+            if o.data_ptr() != t.data_ptr():
+                o.copy_(t)
+        key = _branch(self.plan, state, draws)
+        cap = self.graphs.get(key)
+        if cap is None:
+            cap = self.graphs[key] = self._capture(state, draws, run)
+        if draws is not None:
+            for buf, (_, a) in zip(cap.draws, leaves(draws)):
+                buf.copy_(torch.as_tensor(a))
+        with phase_scope("engine/graph/replay"):
+            cap.graph.replay()
+            diag = cap.diag.read()
+        own = self.own if self.donate else [t.clone() for t in self.own]
+        return _with_fields(state, own, state.step + 1), diag
+
+    def _capture(self, state: EngineState, draws, run) -> _Captured:
+        inp = _with_fields(state, self.own, state.step)
+        dev = self.own[0].device
+        static = None if draws is None else rebuild(
+            draws, lambda _, a: torch.empty_like(torch.as_tensor(a),
+                                                 device=dev))
+        g = torch.cuda.CUDAGraph()
+        for gen in state.gens:
+            g.register_generator_state(gen)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        with phase_scope("engine/graph/capture"), graph_capture(), \
+                torch.cuda.graph(g, pool=self.pool,
+                                 stream=_streams(dev, 0)[0]):
+            packed = self._into_own(inp, static, run)
+        return _Captured(graph=g, diag=packed,
+                         draws=[a for _, a in leaves(static)])
+
+    def _into_own(self, inp: EngineState, draws, run) -> _Diag:
+        """The captured work: the step on the owned buffers, donating
+        them, each returned tensor copied into its owned one where it is
+        another, and the diagnostics packed."""
+        out, diag = run(inp, None, draws, True)
+        for o, t in zip(self.own, _fields(out)):
+            if o.data_ptr() != t.data_ptr():
+                o.copy_(t)
+        return _Diag(diag)
+
+
+def _branch(plan: _Plan, state: EngineState, draws) -> tuple:
+    """What the host branches on in a step: the form of ``draws``, the
+    species pushed this step (those with a stride > 1) and whether the
+    periodic rebalance is due."""
+    reb = plan.ecfg.rebalance_every
+    return (None if draws is None else tuple(
+        (path, torch.as_tensor(a).shape, torch.as_tensor(a).dtype)
+        for path, a in leaves(draws)),
+            tuple(state.step % sc.stride == 0 for sc in plan.cfg.species
+                  if sc.stride > 1),
+            reb > 0 and state.step > 0 and state.step % reb == 0)
 
 
 def _ingest(plan: _Plan, w: _Work) -> None:
@@ -809,6 +1017,8 @@ def _buffers(plan: _Plan, w: _Work) -> None:
         w.rho_acc = [torch.zeros(plan.grid.ng, dtype=torch.float32,
                                  device=dev) if plan.carried else None
                      for _ in range(d)]
+        # read by the queues' streams, replaced by their sums
+        w.keep.extend(a for a in w.rho_acc if a is not None)
         w.ready = w.record()
 
 
@@ -840,8 +1050,12 @@ def _push(plan: _Plan, w: _Work, r, g, k, q: StackedSpecies):
             charges=charges if plan.carried else None)
         strides = [cfg.species[i].stride for i in idxs]
         if any(s > 1 for s in strides):
-            do = torch.tensor([w.state.step % s == 0 for s in strides],
-                              device=w.dev)
+            # filled slot by slot: a copy from the host cannot be
+            # captured into the step's graph
+            do = torch.zeros(len(strides), dtype=torch.bool, device=w.dev)
+            for j, s in enumerate(strides):
+                if w.state.step % s == 0:
+                    do[j].fill_(True)
             out = StackedSpecies(*(
                 torch.where(do.reshape((-1,) + (1,) * (getattr(out, f)
                                                        .dim() - 1)),
@@ -1039,7 +1253,10 @@ def _merge(plan: _Plan, w: _Work) -> None:
     with phase_scope("engine/merge"):
         for g, idxs in enumerate(plan.groups):
             charges = w.gconsts[g][2]
-            full = _merged(w.sts[g], w.kept[g], plan.n_q)
+            # the ring path owns w.sts[g] (the donated input or the
+            # ingest's copy): the queues are merged back into it
+            full = _merged(w.sts[g], w.kept[g], plan.n_q,
+                           into=plan.ecfg.use_ring)
             s = len(idxs)
             cand = _map(w.recv[g], lambda a: a.reshape(
                 (d, s, 2 * plan.ecfg.max_migration) + tuple(a.shape[5:])))
@@ -1142,12 +1359,14 @@ def _sum64(mask: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, a, 0.0).sum(dtype=torch.float64)
 
 
-def _merged(st_in: StackedSpecies, kept_g, n_q: int) -> StackedSpecies:
+def _merged(st_in: StackedSpecies, kept_g, n_q: int,
+            into: bool = False) -> StackedSpecies:
     """The (D, S, cap) stack of every domain's merged queues (one domain's
-    single queue as it is)."""
+    single queue as it is), written into ``st_in`` with ``into`` (the
+    queues hold copies of its rows, or rows it no longer needs)."""
     if len(kept_g) == 1 and n_q == 1:
         return _map(kept_g[0][0], lambda a: a[None])
-    out = _map(st_in, torch.empty_like)
+    out = st_in if into else _map(st_in, torch.empty_like)
     for r, qs in enumerate(kept_g):
         _merge_queues(qs, n_q, _map(out, lambda a, r=r: a[r]))
     return out

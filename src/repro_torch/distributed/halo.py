@@ -153,8 +153,10 @@ def solve_poisson_halo(rho: torch.Tensor, dx: float, eps0: float,
         i_glob = (torch.arange(d, device=rho.device)[:, None] * ncl
                   + torch.arange(ngl, device=rho.device)).to(rho.dtype)
         phi = phi_left + i_glob * g0 - s2m1
-        phi[0, 0] = phi_left
-        phi[-1, -1] = phi_right
+        # fill_, not a set from a host scalar (a copy from the host,
+        # which a CUDA graph's capture refuses)
+        phi[0, 0].fill_(phi_left)
+        phi[-1, -1].fill_(phi_right)
         return phi
 
 

@@ -3,9 +3,10 @@
 
 * ``phase_breakdown`` runs real steps under the span recorder
   (``obs.tracing``) and sums each label's spans (``PHASE_SPANS``): device
-  time on a CUDA device, host time on the CPU. The reference times
-  cumulative probes of its step and differences them; the port's step has
-  no probes.
+  time on a CUDA device, host time on the CPU. Its steps run eagerly
+  (``make_engine_step(graph=False)``): a replayed graph opens no phase
+  spans. The reference times cumulative probes of its step and
+  differences them; the port's step has no probes.
 * ``queue_stats`` is the per-queue occupancy and skew after a few steps,
   on a private copy of the state.
 * ``scaling_metrics`` adds speedup and parallel efficiency to a
@@ -85,7 +86,7 @@ def phase_breakdown(ecfg, *, iters: int = 3, warmup: int = 1, seed: int = 0,
              if state is None else _copy_state(state))
     dev = state.groups[0].x.device
     card = dev.type == "cuda"
-    step = engine_mod.make_engine_step(ecfg)
+    step = engine_mod.make_engine_step(ecfg, graph=False)
     for _ in range(warmup):
         state, _ = step(state)
     tracing.reset()

@@ -43,9 +43,11 @@ the cycle's and the engine's phase ranges appear in it, and as NVTX ranges
 under Nsight Systems) and the span recorder's spans beside it
 (``DIR/spans.jsonl``, one ``obs.tracing.spans()`` record a line); --phases
 prints each span name's host self ms and device ms a step over the run's
-steps, from the same recorder; --metrics-jsonl FILE streams one structured
-metrics record per engine step; --autotune lets the online controller
-retune the engine knobs (async_n, migration/birth budgets, rebalance
+steps, from the same recorder (its engine steps run eagerly: on a card the
+engine step is otherwise replayed as a CUDA graph, whose steps hold one
+``engine/graph/replay`` span each); --metrics-jsonl FILE streams one
+structured metrics record per engine step; --autotune lets the online
+controller retune the engine knobs (async_n, migration/birth budgets, rebalance
 triggers) from the measured stream between steps. The last two force the engine path even at
 --domains 1.
 
@@ -305,7 +307,8 @@ def main(argv=None) -> None:
             for line in tuner.log:
                 print("autotune:", line)
         else:
-            step = engine.make_engine_step(ecfg)
+            # --phases reads every phase's spans: eager steps, no graph
+            step = engine.make_engine_step(ecfg, graph=not args.phases)
             with _observed(args):
                 for _ in range(args.steps):
                     ts = time.perf_counter()

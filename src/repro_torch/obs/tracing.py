@@ -22,8 +22,11 @@ besides its NVTX range. On, a scope also
   of one step), host start and end in ns on the clock of the profiler's
   Chrome trace (``ts`` us x 1e3 + ``baseTimeNanoseconds``, which is
   ``time.time_ns()``: the monotonic clock plus an offset taken at each
-  root span), and, where CUDA is initialised, a timing CUDA event recorded
-  on the current stream at entry and at exit.
+  root span), and, where CUDA is initialised and no CUDA graph is being
+  captured, a timing CUDA event recorded on the current stream at entry
+  and at exit. The spans of a step captured into a graph have no events;
+  a replay runs none of the step's scopes (the engine opens
+  ``engine/graph/capture`` and ``engine/graph/replay`` around the two).
 
 Recording synchronises nothing and launches no device operation.
 ``spans()`` reads the list, each span with ``device_ms`` (the time between
@@ -68,6 +71,7 @@ PORT_ONLY_SPANS = (
     "engine/step", "engine/buffers", "engine/queue/q<k>",
     "engine/slice/q<k>", "engine/births/q<k>", "engine/ring/q<k>",
     "engine/rho/q<k>", "engine/join", "engine/merge/rho", "engine/release",
+    "engine/graph/capture", "engine/graph/replay",
 )
 _QUEUE = re.compile(r"/q\d+$")
 
@@ -86,12 +90,15 @@ def port_only(name: str) -> bool:
 
 @contextlib.contextmanager
 def capture_scopes() -> Iterator[list[str]]:
-    """Record the names of every ``phase_scope`` entered in the block."""
+    """Record the names of every ``phase_scope`` entered in the block; an
+    enclosing block records them too."""
     global _capture
     prev, _capture = _capture, []
     try:
         yield _capture
     finally:
+        if prev is not None:
+            prev.extend(_capture)
         _capture = prev
 
 
@@ -109,6 +116,7 @@ class _Recorder:
         self.open: list[_Span] = []
         self.count = 0                 # spans opened since import
         self.offset_ns = 0
+        self.capturing = 0             # open graph_capture() blocks
 
     def enter(self, name: str) -> _Span:
         sp = _Span()
@@ -163,7 +171,7 @@ class _Scope:
             if profiled:
                 self.rf = record_function(self.name)
                 self.rf.__enter__()
-            if torch.cuda.is_initialized():
+            if torch.cuda.is_initialized() and not _rec.capturing:
                 self.stream = torch.cuda.current_stream()
                 sp.ev0 = _event(self.stream)
         if _NVTX:
@@ -197,6 +205,18 @@ def recording() -> Iterator[None]:
         yield
     finally:
         _rec.depth -= 1
+
+
+@contextlib.contextmanager
+def graph_capture() -> Iterator[None]:
+    """Mark the block as a CUDA graph capture: the recorder records no
+    CUDA event in it (an event recorded on a stream that is not yet part
+    of the capture would run outside the graph)."""
+    _rec.capturing += 1
+    try:
+        yield
+    finally:
+        _rec.capturing -= 1
 
 
 def reset() -> None:

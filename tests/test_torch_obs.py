@@ -268,15 +268,16 @@ def test_trace_session_writes_the_engine_ranges():
 
 def test_port_only_span_names_are_pinned():
     """The names the port enters and the reference has not: the cycle's
-    phases and the engine's host work between the reference's scopes,
-    any queue index standing for ``q<k>``; no reference name is one."""
+    phases, the engine's host work between the reference's scopes and
+    its CUDA graph's capture and replay, any queue index standing for
+    ``q<k>``; no reference name is one."""
     assert tracing.PORT_ONLY_SPANS == (
         "cycle/step", "cycle/field", "cycle/push", "cycle/collide",
         "cycle/see", "cycle/ionize", "cycle/diag",
         "engine/step", "engine/buffers", "engine/queue/q<k>",
         "engine/slice/q<k>", "engine/births/q<k>", "engine/ring/q<k>",
         "engine/rho/q<k>", "engine/join", "engine/merge/rho",
-        "engine/release")
+        "engine/release", "engine/graph/capture", "engine/graph/replay")
     assert tracing.port_only("engine/queue/q12")
     assert tracing.port_only("engine/rho/q3")
     assert tracing.port_only("engine/ring/q0")
