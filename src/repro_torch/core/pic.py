@@ -351,9 +351,11 @@ def step_fn(state: PICState, cfg: PICConfig,
     """One PIC cycle, in a ``cycle/step`` scope (``obs/tracing``) whose
     children are its phases: ``cycle/field``, ``cycle/push``,
     ``cycle/collide``, ``cycle/see``, ``cycle/ionize`` and ``cycle/diag``,
-    each entered only where its phase runs. ``params`` (optional) supplies
-    the runtime scalars (dt, b, the source and collision coefficients) in
-    place of the config's; the two are bit-identical for equal values (see
+    each entered only where its phase runs; ``cycle/ionize`` holds
+    ``cycle/ionize/rho`` (the births' charge into the carried rho) where
+    the rho is carried. ``params`` (optional) supplies the runtime scalars
+    (dt, b, the source and collision coefficients) in place of the
+    config's; the two are bit-identical for equal values (see
     ``core/params.py``). ``draws`` (optional) replaces the generator for
     the Monte-Carlo phases: one dict per phase in the reference's key order
     (each collision-menu entry, each wall-emission pair, then ionization),
@@ -488,12 +490,13 @@ def _ionize(state: PICState, cfg: PICConfig, rp: RuntimeParams | None,
     if carried and new_rho is not None:
         # one deposit for both halves of every born pair; the killed
         # neutral carries no charge (see _carries_rho)
-        q_e = cfg.species[ei].charge
-        q_i = cfg.species[ii].charge
-        bw = births.w * births.ok
-        new_rho = new_rho + deposit_windowed(
-            grid, torch.stack([births.x, births.x]),
-            torch.stack([q_e * bw, q_i * bw]))
+        with phase_scope("cycle/ionize/rho"):
+            q_e = cfg.species[ei].charge
+            q_i = cfg.species[ii].charge
+            bw = births.w * births.ok
+            new_rho = new_rho + deposit_windowed(
+                grid, torch.stack([births.x, births.x]),
+                torch.stack([q_e * bw, q_i * bw]))
     diag.update(d)
     return new_rho
 

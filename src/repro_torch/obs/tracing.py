@@ -67,7 +67,7 @@ _NVTX = torch.version.cuda is not None
 # a queue's index
 PORT_ONLY_SPANS = (
     "cycle/step", "cycle/field", "cycle/push", "cycle/collide", "cycle/see",
-    "cycle/ionize", "cycle/diag",
+    "cycle/ionize", "cycle/ionize/rho", "cycle/diag",
     "engine/step", "engine/buffers", "engine/queue/q<k>",
     "engine/slice/q<k>", "engine/births/q<k>", "engine/ring/q<k>",
     "engine/rho/q<k>", "engine/join", "engine/merge/rho", "engine/release",

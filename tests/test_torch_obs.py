@@ -273,7 +273,7 @@ def test_port_only_span_names_are_pinned():
     ``q<k>``; no reference name is one."""
     assert tracing.PORT_ONLY_SPANS == (
         "cycle/step", "cycle/field", "cycle/push", "cycle/collide",
-        "cycle/see", "cycle/ionize", "cycle/diag",
+        "cycle/see", "cycle/ionize", "cycle/ionize/rho", "cycle/diag",
         "engine/step", "engine/buffers", "engine/queue/q<k>",
         "engine/slice/q<k>", "engine/births/q<k>", "engine/ring/q<k>",
         "engine/rho/q<k>", "engine/join", "engine/merge/rho",

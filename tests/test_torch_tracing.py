@@ -23,7 +23,9 @@ from repro_torch.distributed import engine
 from repro_torch.obs import tracing
 
 CYCLE_ORDER = ["cycle/step", "cycle/field", "cycle/push", "cycle/collide",
-               "cycle/see", "cycle/ionize", "cycle/diag"]
+               "cycle/see", "cycle/ionize", "cycle/ionize/rho", "cycle/diag"]
+# the births' charge into the carried rho, inside cycle/ionize
+BIRTHS_RHO = "cycle/ionize/rho"
 
 
 def _churn(**kw):
@@ -114,7 +116,10 @@ def test_profiled_cycle_step_nests_and_matches_the_trace():
     assert [r["name"] for r in recs] == CYCLE_ORDER
     root = recs[0]
     assert root["parent"] is None
-    assert _children(recs, root) == CYCLE_ORDER[1:]
+    assert _children(recs, root) == [n for n in CYCLE_ORDER[1:]
+                                     if n != BIRTHS_RHO]
+    ionize = next(r for r in recs if r["name"] == "cycle/ionize")
+    assert _children(recs, ionize) == [BIRTHS_RHO]
     assert {r["step"] for r in recs} == {root["index"]}
     for r in recs:
         assert root["start_ns"] <= r["start_ns"] <= r["end_ns"] \
@@ -158,14 +163,15 @@ def test_profiled_engine_step_nests_and_matches_the_trace():
 @pytest.mark.parametrize("kw,step,want", [
     ({}, 0, CYCLE_ORDER),
     ({"field_solve": False}, 0,
-     [n for n in CYCLE_ORDER if n != "cycle/field"]),
+     [n for n in CYCLE_ORDER if n not in ("cycle/field", BIRTHS_RHO)]),
     ({"collisions": (), "wall_emission": (), "ionization": None}, 0,
      ["cycle/step", "cycle/field", "cycle/push", "cycle/diag"]),
     ({"diag_every": 2}, 1, CYCLE_ORDER[:-1])],
     ids=["all", "field_off", "no_sources", "diag_off_step"])
 def test_cycle_phases_enter_in_order(kw, step, want):
     """The ``cycle/*`` scopes in phase order, each only where its phase
-    runs."""
+    runs; the births' charge (``cycle/ionize/rho``) only where the rho is
+    carried, so not with the field off."""
     cfg = _churn(**kw)
     state = dataclasses.replace(pic.init_state(cfg, 0, device="cpu"),
                                 step=step)
@@ -229,7 +235,8 @@ def test_recording_without_a_profiler(monkeypatch):
     assert entered == [] and tracing.spans() == recs
     assert [r["name"] for r in recs] == CYCLE_ORDER * 2
     roots = [r["index"] for r in recs if r["parent"] is None]
-    assert [r["step"] for r in recs] == [roots[0]] * 7 + [roots[1]] * 7
+    n = len(CYCLE_ORDER)
+    assert [r["step"] for r in recs] == [roots[0]] * n + [roots[1]] * n
     tracing.reset()
     assert tracing.spans() == []
 
